@@ -1,0 +1,94 @@
+"""The port stands alone: ray_tpu_torch and chip_smoke.py import nothing of
+JAX or of the JAX package, and no entry point runs on the CPU unless a
+caller asks for it."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ray_tpu_torch
+from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine
+from ray_tpu_torch.models import transformer as T
+from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
+from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.decoding import Generator, init_cache
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_no_ray_tpu():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.ops, "
+            "ray_tpu_torch.models.convert; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    "default_device", "init_params", "init_cache", "params_from_jax",
+    "Generator", "ContinuousBatcher", "LLMEngine", "ContinuousLLMEngine",
+])
+def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
+    cfg = T.config("debug")
+    calls = {
+        "default_device": lambda: ray_tpu_torch.default_device(),
+        "init_params": lambda: T.init_params(cfg, torch.Generator()),
+        "init_cache": lambda: init_cache(cfg, 1, 8),
+        "params_from_jax": lambda: params_from_jax({}, cfg),
+        "Generator": lambda: Generator(cfg, {}),
+        "ContinuousBatcher": lambda: ContinuousBatcher(cfg, {}),
+        "LLMEngine": lambda: LLMEngine(LLMConfig(model="debug")),
+        "ContinuousLLMEngine": lambda: ContinuousLLMEngine(LLMConfig(model="debug")),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """No card: exit non-zero and print no result. Alone in a directory
+    (no package beside it) it fails the same way."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+            env.pop("PYTHONPATH")
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
