@@ -2,19 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card, then serves
-llama3_8b at full width (all 32 layers, random bf16 weights from seed 0)
-through ray_tpu_torch.llm.LLMEngine and ContinuousLLMEngine, and checks
-that the serving path went through the kernels. Every phase prints one
-JSON line; any failure raises and the script exits non-zero. The last
-line is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
-before doing anything.
+Builds the port's CUDA kernels from the sources in this checkout and
+holds each kernel against its plain PyTorch version on the card. Then
+it drives the port's two paths at full width, each with the kernels'
+launch counts set to 0 just before it and read just after:
+
+- serving: llama3_8b (all 32 layers, random bf16 weights from seed 0)
+  through ray_tpu_torch.llm.LLMEngine and ContinuousLLMEngine;
+- training: llama2_7b_lora (all 32 layers, bf16 params, B=8 x 2048,
+  remat) through ray_tpu_torch.train.make_train_step, 2 warm-up and 5
+  timed steps, after a two-layer fp32 step held against the same step
+  with attention through the plain versions.
+
+Every phase prints JSON lines; any failure raises and the script exits
+non-zero. The line before the last lists the kernels with their times;
+the last is {"ok": true, "device": {...}}. Without a CUDA device it
+exits 1 before doing anything.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -40,6 +49,18 @@ ATTN_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     ("ragged", 2, 100, 100, 4, 4, 64, False, torch.float32),
     ("sq_ne_sk", 2, 64, 192, 8, 4, 32, True, torch.float32),
 ]
+
+
+BWD_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
+    # the training step's attention (llama2_7b_lora, bench.py:476-480); timed
+    ("train_step", 8, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
+    ("llama3_8b", 1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
+    ("ragged", 2, 100, 100, 4, 4, 64, False, torch.float32),
+    ("sq_ne_sk", 2, 64, 192, 8, 4, 32, True, torch.float32),
+]
+FP32_BWD_TOL = 1e-4  # kernel vs plain in fp32: summation order only
+TRAIN_BATCH = 8
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
 def emit(obj) -> None:
@@ -70,10 +91,16 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device activity kinds for a profile's breakdown, by kernel-name substring
+KINDS = (("flash attention kernels", ("flash_fwd_kernel", "flash_bwd_")),
+         ("cuBLAS matmuls", ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
+
+
 def profiled(fn, top: int = 8):
     """Run ``fn`` once under torch.profiler: wall ms, device-busy ms (the
-    union of the device activity intervals, so nothing counts twice) and
-    the top device activities by summed time."""
+    union of the device activity intervals, so nothing counts twice), the
+    summed device ms of each of KINDS (the rest as "other") and the top
+    device activities by summed time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -92,24 +119,53 @@ def profiled(fn, top: int = 8):
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + stop - start)
     busy_ms = busy_us / 1e3
+    by_kind = {}
+    for name, (n, us) in by_name.items():
+        kind = next((k for k, subs in KINDS if any(s in name for s in subs)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     tops = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "device_ms_by_kind": by_kind,
             "top_device_activities": [{"name": k[:80], "count": n, "ms": us / 1e3}
                                       for k, (n, us) in tops]}
+
+
+def kept_pairs(sq, sk, causal):
+    """(query, key) pairs the mask keeps: under the top-left causal mask
+    query i sees min(i + 1, Sk) keys."""
+    return sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
 
 
 def attention_bound_ms(b, sq, sk, h, hkv, d, causal, dtype):
     """Least time for the flash forward on these inputs: the larger of its
     bytes (q, k, v read once; O and the fp32 LSE written once) over HBM
-    rate and its multiply-adds over the peak rate for the input type.
-    Under the top-left causal mask query i sees min(i + 1, Sk) keys."""
+    rate and its multiply-adds over the peak rate for the input type."""
     es = torch.finfo(dtype).bits // 8
     nbytes = es * (2 * b * sq * h * d + 2 * b * sk * hkv * d) + 4 * b * h * sq
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    flops = 4 * b * h * d * pairs
+    flops = 4 * b * h * d * kept_pairs(sq, sk, causal)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def bwd_bound_ms(kernel, b, sq, sk, h, hkv, d, causal, dtype):
+    """Least time for one backward kernel on these inputs: the larger of
+    its bytes (q, k, v, dO read once, LSE and Delta in fp32, its outputs
+    written once) over HBM rate and its operations over the peak rate for
+    the input type: per kept (q, k) pair and head, 6*D for the dQ pass (S,
+    dP, dQ) and 8*D for the dK/dV pass (S, dP, dV, dK)."""
+    es = torch.finfo(dtype).bits // 8
+    q_el, kv_el = b * sq * h * d, b * sk * hkv * d
+    dq_pass = kernel == "flash_bwd_dq"
+    nbytes = (es * (2 * q_el + 2 * kv_el) + 2 * 4 * b * h * sq
+              + es * (q_el if dq_pass else 2 * kv_el))
+    flops = (6 if dq_pass else 8) * b * h * d * kept_pairs(sq, sk, causal)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def max_abs(x, y) -> float:
+    return float((x.float() - y.float()).abs().max())
 
 
 def prompt_texts(lengths, seed):
@@ -127,14 +183,392 @@ def prompt_texts(lengths, seed):
     return out
 
 
+def serving_phases(kernels) -> dict:
+    """The serving path: serve llama3_8b at full width through LLMEngine and
+    ContinuousLLMEngine (launches counted from 0 around it), then time
+    prefill and decode and hold the kernel prefill against the plain
+    formulation. Returns the serving path's launches; everything it
+    allocates is freed on return."""
+    from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.models.decoding import forward_cached, init_cache
+    from ray_tpu_torch.ops import attention as A
+
+    cfg = T.config("llama3_8b", param_dtype=torch.bfloat16)
+    prompts4 = prompt_texts([100, 600, 1100, 1500], SEED)
+    prompts8 = prompt_texts(np.linspace(100, 1500, 8).astype(int).tolist(), SEED + 1)
+    greedy = SamplingParams(max_tokens=MAX_TOKENS)
+    config = LLMConfig(model=cfg, max_len=MAX_LEN, sampling=greedy, seed=SEED,
+                       cache_slots=8)
+    batcher = None
+    try:
+        with phase("engine_init"):
+            t0 = time.perf_counter()
+            engine = LLMEngine(config)
+            torch.cuda.synchronize()
+            params = engine.generator.params
+            nbytes = sum(t.numel() * t.element_size() for t in
+                         [params["embed"], params["ln_f"], params["unembed"],
+                          *params["blocks"].values()])
+            emit({"model": "llama3_8b", "layers": cfg.layers, "hidden": cfg.hidden,
+                  "params": cfg.num_params(), "param_bytes": nbytes,
+                  "init_s": time.perf_counter() - t0})
+
+        # ---- the main path: counts from 0, read right after ----------
+        reset_launches(A)
+        with phase("engine"):
+            tok = engine.tokenizer
+            ids4 = [tok.encode(p) for p in prompts4]
+            t0 = time.perf_counter()
+            outs = engine.generate_tokens(ids4)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            launches_engine = A.flash_fwd_launches
+            emit({"engine_generate_s": gen_s, "prompt_tokens": [len(i) for i in ids4],
+                  "completion_tokens": [len(o) for o in outs],
+                  "flash_fwd_launches": launches_engine})
+            if launches_engine != cfg.layers:
+                raise AssertionError(
+                    f"one prefill call launched flash_fwd {launches_engine} "
+                    f"times, expected {cfg.layers}")
+            if any(len(o) != MAX_TOKENS or not all(0 <= t < cfg.vocab_size for t in o)
+                   for o in outs):
+                raise AssertionError(f"engine completions malformed: {outs}")
+
+        with phase("continuous_engine"):
+            t0 = time.perf_counter()
+            cengine = ContinuousLLMEngine(config, params=params)
+            batcher = cengine.batcher
+            futs = [cengine.submit(p) for p in prompts8]
+            ctexts = [f.result(timeout=600) for f in futs]
+            cont_s = time.perf_counter() - t0
+            launches_cont = A.flash_fwd_launches - launches_engine
+            stats = dict(batcher.stats)
+            # random weights rarely emit byte ids, so the texts are mostly
+            # empty; stats["tokens_out"] counts the tokens
+            emit({"continuous_s": cont_s, "stats": stats,
+                  "completion_chars": [len(t) for t in ctexts],
+                  "flash_fwd_launches": launches_cont})
+            if stats["finished"] != len(prompts8) or launches_cont != cfg.layers * stats["admitted"]:
+                raise AssertionError(f"continuous engine: {stats}, {launches_cont} launches")
+        launches = read_launches(A)
+        kernels["flash_fwd"]["launches"] = launches["flash_fwd"]
+        # ---- end of the main path ------------------------------------
+
+        with phase("serving_times"):
+            gen_ = engine.generator
+            t0 = time.perf_counter()
+            nxt, cache, g = gen_._start(ids4, greedy, seed=1)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            steps = 16
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                nxt = gen_._decode(nxt, cache, g, 0.0, 0)
+            torch.cuda.synchronize()
+            decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+            emit({"prefill_ms": prefill_ms, "prefill_tokens": sum(map(len, ids4)),
+                  "prefill_padded_rows": len(ids4) * max(map(len, ids4)),
+                  "decode_ms_per_token": decode_ms, "decode_batch": len(ids4),
+                  "clock": "host, synchronized"})
+            emit({"profile": "prefill", **profiled(lambda: gen_._start(ids4, greedy, seed=1))})
+            emit({"profile": "decode x4", **profiled(
+                lambda: [gen_._decode(nxt, cache, g, 0.0, 0) for _ in range(4)])})
+            del cache
+
+        with phase("prefill_vs_plain"):
+            # The kernel's prefill against the JAX package's formulation
+            # (plain _attend_cached over the length-masked cache) on one
+            # prompt, same weights. Checked in fp32 compute, where the two
+            # differ only by summation order: 1e-3 abs on logits of
+            # magnitude ~5 after 32 layers. In bf16 two orderings each
+            # round differently at every layer, so the bf16 gap is only
+            # reported, beside the gap bf16 opens against fp32.
+            ids = torch.tensor([ids4[0]], device="cuda")
+            s = ids.shape[1]
+            pos = torch.arange(s, device="cuda")[None, :]
+            mask = torch.arange(s, device="cuda")[None, :] < s
+            cfg32 = T.config(cfg, dtype=torch.float32)
+
+            def last_logits(c, prefill):
+                lg, _ = forward_cached(c, params, ids, pos,
+                                       init_cache(c, 1, s, device="cuda"),
+                                       None if prefill else mask, prefill=prefill)
+                return lg[0, -1].float()
+
+            with torch.no_grad():
+                k32, p32 = last_logits(cfg32, True), last_logits(cfg32, False)
+                k16, p16 = last_logits(cfg, True), last_logits(cfg, False)
+            gap32 = float((k32 - p32).abs().max())
+            row = {"prompt_tokens": s, "fp32_kernel_vs_plain": gap32, "tol": 1e-3,
+                   "bf16_kernel_vs_plain": float((k16 - p16).abs().max()),
+                   "bf16_vs_fp32": float((p16 - p32).abs().max()),
+                   "argmax": [int(x.argmax()) for x in (k32, p32, k16, p16)],
+                   "logits_max_abs": float(p32.abs().max())}
+            emit(row)
+            if not (gap32 <= 1e-3 and bool(torch.isfinite(k16).all())):
+                raise AssertionError(f"kernel prefill disagrees with the plain formulation: {row}")
+    finally:
+        if batcher is not None:
+            batcher.shutdown()
+    return launches
+
+
+
+# the port's launch counters, by kernel name
+COUNTERS = {"flash_fwd": "flash_fwd_launches",
+            "flash_bwd_dq": "flash_bwd_dq_launches",
+            "flash_bwd_dkv": "flash_bwd_dkv_launches"}
+
+
+def reset_launches(A) -> None:
+    for attr in COUNTERS.values():
+        setattr(A, attr, 0)
+
+
+def read_launches(A) -> dict:
+    return {name: getattr(A, attr) for name, attr in COUNTERS.items()}
+
+
+def tree_items(tree, prefix=""):
+    """(path, tensor) of each leaf of a params-shaped dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def clone_tree(tree):
+    return ({k: clone_tree(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.clone())
+
+
+def sdpa_bwd_ms(q, k, v, do, causal, iters):
+    """ms of the backward of scaled_dot_product_attention on the same
+    inputs through torch.autograd.grad: one call yields dQ, dK and dV."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    g = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
+                                               retain_graph=True), iters)
+
+
+def flash_bwd_vs_plain(kernels, smi) -> None:
+    """Each backward kernel against _flash_bwd_reference at the shapes the
+    training path (and llama3_8b) gives it, and at two ragged fp32 ones;
+    times at the training shape."""
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("flash_bwd_vs_plain"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        for sname, b, sq, sk, h, hkv, d, causal, dtype in BWD_SHAPES:
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+            do = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+            o, lse = A.flash_attention_fwd(q, k, v, causal)
+            grads = A.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            plain = A._flash_bwd_reference(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            row = {"shape": sname, "b": b, "sq": sq, "sk": sk, "h": h, "hkv": hkv,
+                   "d": d, "causal": causal, "dtype": str(dtype)}
+            if dtype == torch.float32:
+                tols = [FP32_BWD_TOL] * 3
+            else:
+                # Kernel and plain version both compute in fp32 and round
+                # once to bf16, so each lies within one rounding of the fp32
+                # result: at most `gap`, the plain version's bf16-vs-fp32
+                # gap on these inputs. They are within 2 * gap of each
+                # other, plus fp32's summation-order tolerance.
+                plain32 = A._flash_bwd_reference(q.float(), k.float(), v.float(),
+                                                 o.float(), lse, do.float(), causal)
+                gaps = [max_abs(x, y) for x, y in zip(plain, plain32)]
+                row["bf16_vs_fp32_gap"] = gaps
+                tols = [2 * gap + FP32_BWD_TOL for gap in gaps]
+                del plain32
+            errs = [max_abs(x, y) for x, y in zip(grads, plain)]
+            row.update(max_abs_err=dict(zip(("dq", "dk", "dv"), errs)), tol=tols)
+            if sname == "train_step":
+                scale, iters = d ** -0.5, 5
+                delta = A._flash_bwd_delta(o, do)
+                row["dq_ms"] = cuda_ms(lambda: A._flash_bwd_dq_cuda(
+                    q, k, v, do, lse, delta, causal, scale), iters)
+                row["dkv_ms"] = cuda_ms(lambda: A._flash_bwd_dkv_cuda(
+                    q, k, v, do, lse, delta, causal, scale), iters)
+                row["fwd_ms"] = cuda_ms(lambda: A.flash_attention_fwd(q, k, v, causal), iters)
+                row["fwd_bound_ms"], _ = attention_bound_ms(b, sq, sk, h, hkv, d, causal, dtype)
+                row["plain_ms"] = cuda_ms(lambda: A._flash_bwd_reference(
+                    q, k, v, o, lse, do, causal), 2)
+                row["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, iters)
+                row["card"] = smi
+                for name, line, ms, err in (
+                        ("flash_bwd_dq", 164, row["dq_ms"], errs[0]),
+                        ("flash_bwd_dkv", 199, row["dkv_ms"], max(errs[1:]))):
+                    bound, by = bwd_bound_ms(name, b, sq, sk, h, hkv, d, causal, dtype)
+                    row[f"{name}_bound_ms"] = bound
+                    kernels[name] = {
+                        "name": name, "route": "cuda",
+                        "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                        "replaces": f"ray_tpu/ops/attention.py:{line}",
+                        "max_abs_err": err, "ms": ms, "plain_ms": row["plain_ms"],
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": row["library_ms"],
+                        # one plain call and one SDPA backward each give
+                        # all three grads: both rows carry their full time
+                        "plain_and_library_cover": "dQ, dK and dV",
+                        "shape": "B=8 S=2048 H=32/32 D=128 causal bf16"}
+                del delta
+            emit(row)
+            if not all(e <= t for e, t in zip(errs, tols)):
+                raise AssertionError(f"flash backward disagrees with its plain version at {row}")
+            del q, k, v, do, o, lse, grads, plain
+            torch.cuda.empty_cache()
+
+
+def train_full_width_check() -> None:
+    """Two layers of llama2_7b_lora at full width, fp32 params and
+    compute, B=1 x 2048: the train step with the kernels against the same
+    step with attention through the plain versions."""
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = A._flash_fwd_reference(q, k, v, True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, g):
+            return A._flash_bwd_reference(*ctx.saved_tensors, g, True)
+
+    with phase("train_full_width_check"):
+        cfg = T.config("llama2_7b_lora", layers=2, dtype=torch.float32,
+                       param_dtype=torch.float32)
+        opt = S.default_optimizer(cfg)
+        state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        for name in ("wq_b", "wv_b", "wi_b"):  # nonzero B: every adapter takes a grad
+            t = state["params"]["lora"][name]
+            t.copy_(0.1 * torch.randn(t.shape, generator=gen, device="cuda"))
+        tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+            0, cfg.vocab_size, (1, MAX_LEN))).cuda()
+        batch = {"tokens": tokens}
+        out = {}
+        for route, attn in (("kernels", None), ("plain", PlainFlash.apply)):
+            reset_launches(A)
+            (_, m), grads = S.value_and_grad(cfg, state["params"], batch, attn_fn=attn)
+            stepped = clone_tree(state)
+            _, sm = S.make_train_step(cfg, opt, device="cuda", attn_fn=attn)(stepped, batch)
+            torch.cuda.synchronize()
+            out[route] = {"loss": float(m["loss"]), "step_loss": float(sm["loss"]),
+                          "grad_norm": float(sm["grad_norm"]), "lora": grads["lora"],
+                          "launches": read_launches(A)}
+        k_, p_ = out["kernels"], out["plain"]
+        lora_err = {n: max_abs(k_["lora"][n], p_["lora"][n]) / float(p_["lora"][n].abs().max())
+                    for n in p_["lora"]}
+        row = {"layers": cfg.layers, "hidden": cfg.hidden, "seq": MAX_LEN,
+               "loss": [k_["loss"], p_["loss"]], "step_loss": [k_["step_loss"], p_["step_loss"]],
+               "grad_norm": [k_["grad_norm"], p_["grad_norm"]],
+               "lora_grad_rel_err": lora_err,
+               "launches": {"kernels": k_["launches"], "plain": p_["launches"]},
+               "tol": {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "lora_grad_rel": 1e-4}}
+        emit(row)
+        want = {"flash_fwd": 4 * cfg.layers, "flash_bwd_dq": 2 * cfg.layers,
+                "flash_bwd_dkv": 2 * cfg.layers}  # two passes, each forward + remat
+        ok = (abs(k_["loss"] - p_["loss"]) <= 1e-5 * abs(p_["loss"])
+              and k_["loss"] == k_["step_loss"]
+              and abs(k_["grad_norm"] - p_["grad_norm"]) <= 1e-4 * p_["grad_norm"]
+              and max(lora_err.values()) <= 1e-4
+              and k_["launches"] == want and not any(p_["launches"].values()))
+        if not ok:
+            raise AssertionError(f"kernel and plain train steps disagree: {row}")
+        del state, out, k_, p_
+        torch.cuda.empty_cache()
+
+
+def train_steps(smi) -> dict:
+    """The training path at full width: llama2_7b_lora, all 32 layers, bf16
+    params (bench.py:476-480 sets them for one chip), B=8 x 2048, remat,
+    tokens from seed 0 and the same batch each step as bench.py's
+    _run_bench. Returns one step's kernel launches."""
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("train_steps"):
+        cfg = T.config("llama2_7b_lora", param_dtype=torch.bfloat16)
+        opt = S.default_optimizer(cfg)
+        t0 = time.perf_counter()
+        state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+            0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+        batch = {"tokens": tokens}
+        params = state["params"]
+        # host copies of the frozen base, to check it bit-unchanged after
+        frozen = {p: t.cpu() for p, t in tree_items(params) if not p.startswith("lora/")}
+        lora0 = {p: t.clone() for p, t in tree_items(params["lora"])}
+        run = S.make_train_step(cfg, opt, device="cuda")
+        want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+                "flash_bwd_dkv": cfg.layers}  # forward + remat re-run, one backward
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            # ---- the main path: counts from 0, read right after ------
+            reset_launches(A)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            launches = read_launches(A)
+            # ---- end of the main path --------------------------------
+            losses.append(float(m["loss"]))
+            emit({"train_step": i, "warmup": i < TRAIN_WARMUP, "ms": step_ms[-1],
+                  "loss": losses[-1], "grad_norm": float(m["grad_norm"]),
+                  "accuracy": float(m["accuracy"]), "launches": launches})
+            if launches != want:
+                raise AssertionError(f"step {i} launched {launches}, expected {want}")
+        timed = sorted(step_ms[TRAIN_WARMUP:])
+        med = timed[len(timed) // 2]
+        tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
+        peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
+        emit({"model": "llama2_7b_lora", "layers": cfg.layers, "batch": TRAIN_BATCH,
+              "seq": MAX_LEN, "param_dtype": "bfloat16", "remat": cfg.remat,
+              "params": cfg.num_params(), "init_s": init_s,
+              "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
+              "tokens_per_s": tok_s,
+              "mfu_6n": 6 * cfg.num_params() * tok_s / peak, "peak_flops": peak,
+              "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "losses": losses, "clock": "host, synchronized", "card": smi})
+        emit({"profile": "train_step", "card": smi, **profiled(lambda: run(state, batch), top=12)})
+        torch.cuda.synchronize()
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"losses not finite and falling: {losses}")
+        changed = [p for p, t in tree_items(params) if p in frozen
+                   and not torch.equal(frozen[p].cuda(), t)]
+        unmoved = [p for p, t in tree_items(params["lora"])
+                   if not (t != lora0[p]).flatten(1).any(1).all()]
+        emit({"frozen_leaves": len(frozen), "frozen_changed": changed,
+              "lora_leaves_not_moved_in_every_layer": unmoved})
+        if changed or unmoved:
+            raise AssertionError(f"frozen leaves changed {changed}; LoRA leaves unmoved {unmoved}")
+        del state, params, frozen, lora0
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine, SamplingParams
-    from ray_tpu_torch.models import transformer as T
-    from ray_tpu_torch.models.decoding import forward_cached, init_cache
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as A
 
@@ -197,124 +631,21 @@ def main() -> int:
                 raise AssertionError(f"flash_fwd disagrees with its plain version at {row}")
             del q, k, v, o, lse, o_ref, lse_ref
 
-    cfg = T.config("llama3_8b", param_dtype=torch.bfloat16)
-    prompts4 = prompt_texts([100, 600, 1100, 1500], SEED)
-    prompts8 = prompt_texts(np.linspace(100, 1500, 8).astype(int).tolist(), SEED + 1)
-    greedy = SamplingParams(max_tokens=MAX_TOKENS)
-    config = LLMConfig(model=cfg, max_len=MAX_LEN, sampling=greedy, seed=SEED,
-                       cache_slots=8)
-    batcher = None
-    try:
-        with phase("engine_init"):
-            t0 = time.perf_counter()
-            engine = LLMEngine(config)
-            torch.cuda.synchronize()
-            params = engine.generator.params
-            nbytes = sum(t.numel() * t.element_size() for t in
-                         [params["embed"], params["ln_f"], params["unembed"],
-                          *params["blocks"].values()])
-            emit({"model": "llama3_8b", "layers": cfg.layers, "hidden": cfg.hidden,
-                  "params": cfg.num_params(), "param_bytes": nbytes,
-                  "init_s": time.perf_counter() - t0})
+    serving = serving_phases(kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
 
-        # ---- the main path: counts from 0, read right after ----------
-        A.flash_fwd_launches = 0
-        with phase("engine"):
-            tok = engine.tokenizer
-            ids4 = [tok.encode(p) for p in prompts4]
-            t0 = time.perf_counter()
-            outs = engine.generate_tokens(ids4)
-            torch.cuda.synchronize()
-            gen_s = time.perf_counter() - t0
-            launches_engine = A.flash_fwd_launches
-            emit({"engine_generate_s": gen_s, "prompt_tokens": [len(i) for i in ids4],
-                  "completion_tokens": [len(o) for o in outs],
-                  "flash_fwd_launches": launches_engine})
-            if launches_engine != cfg.layers:
-                raise AssertionError(
-                    f"one prefill call launched flash_fwd {launches_engine} "
-                    f"times, expected {cfg.layers}")
-            if any(len(o) != MAX_TOKENS or not all(0 <= t < cfg.vocab_size for t in o)
-                   for o in outs):
-                raise AssertionError(f"engine completions malformed: {outs}")
+    flash_bwd_vs_plain(kernels, smi)
+    train_full_width_check()
+    train = train_steps(smi)
+    for name, row in kernels.items():
+        row["card"] = smi
+        row["launches_by_path"] = {"serving": serving[name], "train_step": train[name]}
+        if name != "flash_fwd":  # the training step is their main path
+            row["launches"] = train[name]
 
-        with phase("continuous_engine"):
-            t0 = time.perf_counter()
-            cengine = ContinuousLLMEngine(config, params=params)
-            batcher = cengine.batcher
-            futs = [cengine.submit(p) for p in prompts8]
-            ctexts = [f.result(timeout=600) for f in futs]
-            cont_s = time.perf_counter() - t0
-            launches_cont = A.flash_fwd_launches - launches_engine
-            stats = dict(batcher.stats)
-            # random weights rarely emit byte ids, so the texts are mostly
-            # empty; stats["tokens_out"] counts the tokens
-            emit({"continuous_s": cont_s, "stats": stats,
-                  "completion_chars": [len(t) for t in ctexts],
-                  "flash_fwd_launches": launches_cont})
-            if stats["finished"] != len(prompts8) or launches_cont != cfg.layers * stats["admitted"]:
-                raise AssertionError(f"continuous engine: {stats}, {launches_cont} launches")
-        kernels["flash_fwd"]["launches"] = A.flash_fwd_launches
-        # ---- end of the main path ------------------------------------
-
-        with phase("serving_times"):
-            gen_ = engine.generator
-            t0 = time.perf_counter()
-            nxt, cache, g = gen_._start(ids4, greedy, seed=1)
-            torch.cuda.synchronize()
-            prefill_ms = 1e3 * (time.perf_counter() - t0)
-            steps = 16
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                nxt = gen_._decode(nxt, cache, g, 0.0, 0)
-            torch.cuda.synchronize()
-            decode_ms = 1e3 * (time.perf_counter() - t0) / steps
-            emit({"prefill_ms": prefill_ms, "prefill_tokens": sum(map(len, ids4)),
-                  "prefill_padded_rows": len(ids4) * max(map(len, ids4)),
-                  "decode_ms_per_token": decode_ms, "decode_batch": len(ids4),
-                  "clock": "host, synchronized"})
-            emit({"profile": "prefill", **profiled(lambda: gen_._start(ids4, greedy, seed=1))})
-            emit({"profile": "decode x4", **profiled(
-                lambda: [gen_._decode(nxt, cache, g, 0.0, 0) for _ in range(4)])})
-            del cache
-
-        with phase("prefill_vs_plain"):
-            # The kernel's prefill against the JAX package's formulation
-            # (plain _attend_cached over the length-masked cache) on one
-            # prompt, same weights. Checked in fp32 compute, where the two
-            # differ only by summation order: 1e-3 abs on logits of
-            # magnitude ~5 after 32 layers. In bf16 two orderings each
-            # round differently at every layer, so the bf16 gap is only
-            # reported, beside the gap bf16 opens against fp32.
-            ids = torch.tensor([ids4[0]], device="cuda")
-            s = ids.shape[1]
-            pos = torch.arange(s, device="cuda")[None, :]
-            mask = torch.arange(s, device="cuda")[None, :] < s
-            cfg32 = T.config(cfg, dtype=torch.float32)
-
-            def last_logits(c, prefill):
-                lg, _ = forward_cached(c, params, ids, pos,
-                                       init_cache(c, 1, s, device="cuda"),
-                                       None if prefill else mask, prefill=prefill)
-                return lg[0, -1].float()
-
-            with torch.no_grad():
-                k32, p32 = last_logits(cfg32, True), last_logits(cfg32, False)
-                k16, p16 = last_logits(cfg, True), last_logits(cfg, False)
-            gap32 = float((k32 - p32).abs().max())
-            row = {"prompt_tokens": s, "fp32_kernel_vs_plain": gap32, "tol": 1e-3,
-                   "bf16_kernel_vs_plain": float((k16 - p16).abs().max()),
-                   "bf16_vs_fp32": float((p16 - p32).abs().max()),
-                   "argmax": [int(x.argmax()) for x in (k32, p32, k16, p16)],
-                   "logits_max_abs": float(p32.abs().max())}
-            emit(row)
-            if not (gap32 <= 1e-3 and bool(torch.isfinite(k16).all())):
-                raise AssertionError(f"kernel prefill disagrees with the plain formulation: {row}")
-    finally:
-        if batcher is not None:
-            batcher.shutdown()
-
-    emit({"kernels": [kernels["flash_fwd"]]})
+    emit({"kernels": [kernels[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

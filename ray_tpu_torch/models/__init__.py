@@ -7,6 +7,7 @@ from ray_tpu_torch.models.transformer import (
     forward,
     init_params,
     loss_fn,
+    trainable_mask,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "forward",
     "init_params",
     "loss_fn",
+    "trainable_mask",
 ]

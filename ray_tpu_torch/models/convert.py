@@ -4,7 +4,10 @@
 example ``jax.tree.map(np.asarray, params)``) and returns the port's
 params on ``device``. The port keeps the JAX layout, layer leaves stacked
 on a leading ``layers`` dim, so every leaf maps one to one; only the
-container and the array type change. This module never imports JAX.
+container and the array type change. ``state_from_jax`` does the same for
+a whole train state, so a run trained in JAX continues in the port. This
+module never imports JAX (nor optax: the caller pulls mu, nu and count
+out of the optax state).
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import default_device
-from ray_tpu_torch.models.transformer import TransformerConfig, param_shapes
+from ray_tpu_torch.models.transformer import (
+    TransformerConfig, param_shapes, trainable_leaves,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -36,15 +41,40 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig,
     """JAX pytree of numpy arrays → the port's params dict. ``dtype``
     overrides every leaf's dtype (else each keeps its source dtype).
     Shapes are checked against the port's ``param_shapes``."""
+    return _convert(np_params, param_shapes(cfg), default_device(device),
+                    dtype, "")
+
+
+def _convert(src, want, device, dtype, path):
+    if isinstance(want, dict):
+        if not isinstance(src, dict) or set(src) != set(want):
+            raise ValueError(f"{path or 'params'}: expected keys {sorted(want)}")
+        return {k: _convert(src[k], want[k], device, dtype, f"{path}/{k}")
+                for k in want}
+    if tuple(np.shape(src)) != want[0]:
+        raise ValueError(f"{path}: shape {np.shape(src)} != {want[0]}")
+    return _leaf(src, device, dtype)
+
+
+def state_from_jax(np_state: Dict[str, Any], cfg: TransformerConfig,
+                   device=None):
+    """A JAX train state as numpy arrays → the port's train state
+    (ray_tpu_torch/train/step.py). ``np_state`` holds ``params`` (the
+    params pytree), ``mu`` and ``nu`` (Adam's moments of the trainable
+    leaves only: the whole tree for dense, ``{"lora": ...}`` for LoRA),
+    ``count`` (Adam's step count) and ``step``. Every leaf keeps its
+    source dtype; shapes are checked."""
     device = default_device(device)
+    want = trainable_leaves(cfg, param_shapes(cfg))
 
-    def convert(src, want, path):
-        if isinstance(want, dict):
-            if not isinstance(src, dict) or set(src) != set(want):
-                raise ValueError(f"{path or 'params'}: expected keys {sorted(want)}")
-            return {k: convert(src[k], want[k], f"{path}/{k}") for k in want}
-        if tuple(np.shape(src)) != want[0]:
-            raise ValueError(f"{path}: shape {np.shape(src)} != {want[0]}")
-        return _leaf(src, device, dtype)
+    def scalar(name):
+        return torch.full((), int(np.asarray(np_state[name])), dtype=torch.int32,
+                          device=device)
 
-    return convert(np_params, param_shapes(cfg), "")
+    return {
+        "params": params_from_jax(np_state["params"], cfg, device),
+        "opt_state": {"mu": _convert(np_state["mu"], want, device, None, "/mu"),
+                      "nu": _convert(np_state["nu"], want, device, None, "/nu"),
+                      "count": scalar("count")},
+        "step": scalar("step"),
+    }

@@ -5,10 +5,13 @@ Plain functions on tensors: a model is (config, params dict, forward).
 The params keep the JAX package's layout — layer leaves STACKED on a
 leading ``layers`` dim, ``wq [L, h, nh, hd]``, ``wo [L, nh, hd, h]`` — so
 weights convert one to one and tests compare like with like. The layer
-stack runs as a Python loop over views of the stacked leaves.
+stack runs as a Python loop over ``t[i]`` of each stacked leaf; a caller
+may hand in a list of per-layer tensors in place of a stacked leaf, as
+the train step does (ray_tpu_torch/train/step.py). Under autograd, with
+``cfg.remat``, each block runs under ``torch.utils.checkpoint``.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-row): mixture-of-experts, pipeline/sharded meshes, and the training loss.
+row): mixture-of-experts and pipeline/sharded meshes.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import default_device
 from ray_tpu_torch.ops.attention import flash_attention
@@ -46,6 +50,7 @@ class TransformerConfig:
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     param_dtype: torch.dtype = torch.float32  # master weights
+    remat: bool = True  # recompute each block in the backward (checkpoint)
     lora_rank: int = 0  # 0 = dense; >0 = LoRA adapters on q, v and gate
     lora_alpha: float = 16.0
     num_experts: int = 0  # > 0 (mixture-of-experts) is not ported yet
@@ -53,6 +58,12 @@ class TransformerConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden // self.heads
+
+    def flops_per_token(self) -> float:
+        """Approx forward+backward FLOPs/token (6*N + attention), for MFU."""
+        n_params = self.num_params()
+        attn = 12 * self.layers * self.hidden * self.max_seq  # rough
+        return 6 * n_params + attn
 
     def num_params(self) -> int:
         h, m, l, v = self.hidden, self.mlp_hidden, self.layers, self.vocab_size
@@ -68,7 +79,7 @@ class TransformerConfig:
 PRESETS: Dict[str, TransformerConfig] = {
     "debug": TransformerConfig(
         vocab_size=512, hidden=128, mlp_hidden=352, layers=2, heads=4,
-        kv_heads=2, max_seq=128,
+        kv_heads=2, max_seq=128, remat=False,
     ),
     "tiny": TransformerConfig(
         vocab_size=2048, hidden=256, mlp_hidden=704, layers=4, heads=8,
@@ -86,7 +97,7 @@ PRESETS: Dict[str, TransformerConfig] = {
     ),
     "moe_debug": TransformerConfig(
         vocab_size=512, hidden=128, mlp_hidden=256, layers=2, heads=4,
-        kv_heads=2, max_seq=128, num_experts=4,
+        kv_heads=2, max_seq=128, remat=False, num_experts=4,
     ),
 }
 
@@ -165,7 +176,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def _layer(params: Params, i: int):
-    """Views of layer ``i``'s block params and LoRA params (or None)."""
+    """Layer ``i``'s block params and LoRA params (or None): ``t[i]`` of
+    each leaf, a view of a stacked leaf or an item of a per-layer list."""
     lp = {k: t[i] for k, t in params["blocks"].items()}
     lora = params.get("lora")
     return lp, (None if lora is None else {k: t[i] for k, t in lora.items()})
@@ -273,15 +285,63 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     attn_fn = attn_fn or _default_attn(cfg)
+    # Full per-block remat, as the JAX package's jax.checkpoint: the
+    # backward re-runs each block from its input. A selective policy that
+    # kept the attention output would not help: the flash backward needs
+    # the LSE, which only the re-run forward kernel produces.
+    remat = cfg.remat and torch.is_grad_enabled()
     x = params["embed"].to(cfg.dtype)[tokens]
     for i in range(cfg.layers):
         lp, lo = _layer(params, i)
-        x = _block(cfg, x, lp, lo, positions, attn_fn)
+        if remat:
+            x = checkpoint(_block, cfg, x, lp, lo, positions, attn_fn,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(cfg, x, lp, lo, positions, attn_fn)
     return _logits(cfg, params, x)
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
             mesh=None, num_microbatches: Optional[int] = None):
-    """Next-token cross-entropy: the training slice."""
-    raise NotImplementedError(
-        "loss_fn is the training slice (ROADMAP.md Queue A, 'Training slice')")
+    """Next-token cross-entropy. batch: tokens [B,S] int, optional
+    loss_mask [B,S]. Returns (loss, {"loss", "accuracy", "tokens"}), all
+    0-dim fp32 tensors on the tokens' device (no host sync)."""
+    tokens = batch["tokens"]
+    # Forward over the FULL sequence (as the JAX package, whose sequence
+    # shards must keep S divisible by the mesh axis); shift at the logits.
+    logits = forward(cfg, params, tokens, attn_fn=attn_fn, mesh=mesh,
+                     num_microbatches=num_microbatches)[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt_logit = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    nll = logz - tgt_logit
+    acc = (logits.argmax(-1) == targets).float()
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        denom = mask.sum().clamp_min(1.0)
+        loss = (nll * mask).sum() / denom
+        acc = (acc * mask).sum() / denom
+    else:
+        # a fill, not a host-to-device copy (which would sync the stream)
+        denom = torch.full((), float(nll.numel()), device=nll.device)
+        loss = nll.mean()
+        acc = acc.mean()
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def trainable_mask(cfg: TransformerConfig, params: Params) -> Params:
+    """True where a param trains: everything for dense, only adapters for
+    LoRA (the reference's LoRA target trains adapters only)."""
+    def mark(tree, trains):
+        if isinstance(tree, dict):
+            return {k: mark(t, trains or k == "lora") for k, t in tree.items()}
+        return trains
+    return mark(params, not cfg.lora_rank)
+
+
+def trainable_leaves(cfg: TransformerConfig, tree: Params) -> Params:
+    """The part of a params-shaped ``tree`` that trains: all of it for
+    dense, ``{"lora": ...}`` for LoRA. The layout of the optimizer's
+    moments (ray_tpu_torch/train/step.py)."""
+    return {"lora": tree["lora"]} if cfg.lora_rank else tree

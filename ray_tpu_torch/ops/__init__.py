@@ -4,6 +4,7 @@ versions for the hot path."""
 from ray_tpu_torch.ops.attention import (
     blockwise_attention,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_fwd,
     gqa_expand,
     mha_reference,
@@ -14,5 +15,6 @@ __all__ = [
     "blockwise_attention",
     "flash_attention",
     "flash_attention_fwd",
+    "flash_attention_bwd",
     "gqa_expand",
 ]

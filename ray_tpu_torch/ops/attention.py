@@ -5,10 +5,12 @@ Three tiers, all the same math (softmax(QK^T * scale + mask) V):
 - `mha_reference`   : plain torch, O(S^2) memory — ground truth for tests.
 - `blockwise_attention` : online softmax over KV chunks in a Python loop —
   O(S * block) memory, differentiable by autograd.
-- `flash_attention` : the FlashAttention-2 forward kernel written for
-  Hopper (csrc/flash_fwd.cu) on a CUDA tensor; its plain version
-  `_flash_fwd_reference` on a CPU tensor. A CUDA tensor never falls back
-  to the plain version: the kernel launches or the call raises.
+- `flash_attention` : the FlashAttention-2 kernels written for Hopper on
+  a CUDA tensor: the forward (csrc/flash_fwd.cu) and, under autograd, the
+  dQ and dK/dV backward passes (csrc/flash_bwd.cu). On a CPU tensor their
+  plain versions `_flash_fwd_reference` and `_flash_bwd_reference` run.
+  A CUDA tensor never falls back to a plain version: the kernel launches
+  or the call raises.
 
 Layout at every public function is the JAX package's: [B, S, H, D].
 """
@@ -21,9 +23,11 @@ import torch
 
 NEG_INF = -1e30
 
-# Launches of the flash forward kernel (CUDA only; the plain version on the
-# CPU does not count). Reset it to 0 before a run to see which path ran.
+# Launches of each flash kernel (CUDA only; the plain versions on the CPU
+# do not count). Reset them to 0 before a run to see which path ran.
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -150,18 +154,26 @@ def _flash_fwd_reference(q, k, v, causal: bool = True,
     return o.to(q.dtype), lse
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: Optional[float]):
-    global flash_fwd_launches
-    if q.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"flash kernel takes float32 or bfloat16, not {q.dtype}")
-    b, sq, h, d = q.shape
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_KERNEL_HEAD_DIMS}, not {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_kernel_inputs(**tensors) -> None:
+    """What the Hopper kernels take: fp32 or bf16, head_dim 32/64/128, the
+    last dim contiguous (the other dims go by strides)."""
+    for name, t in tensors.items():
+        if t.dtype not in _KERNEL_DTYPES:
+            raise TypeError(f"flash kernel takes float32 or bfloat16, not "
+                            f"{t.dtype} ({name})")
+        if t.shape[-1] not in _KERNEL_HEAD_DIMS:
+            raise ValueError(f"flash kernel takes head_dim in "
+                             f"{_KERNEL_HEAD_DIMS}, not {t.shape[-1]}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: Optional[float]):
+    global flash_fwd_launches
+    _check_kernel_inputs(q=q, k=k, v=v)
     from ray_tpu_torch.ops import _build
 
+    b, sq, h, d = q.shape
     scale = sm_scale if sm_scale is not None else d ** -0.5
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -188,28 +200,124 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     return _flash_fwd_cuda(q, k, v, causal, sm_scale)
 
 
+def _flash_bwd_delta(o, do):
+    """Δ = rowsum(dO ∘ O) in fp32, [B, H, Sq]: the softmax-Jacobian term
+    both backward passes subtract (the JAX package computes it in jnp
+    outside Pallas too, ray_tpu/ops/attention.py:311-316)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _flash_bwd_reference(q, k, v, o, lse, do, causal: bool = True,
+                         sm_scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the two backward kernels: what
+    ray_tpu/ops/attention.py::_flash_bwd_dq_kernel and _flash_bwd_dkv_kernel
+    compute, in fp32, from the saved O and LSE [B,H,Sq]:
+
+        P  = where(mask, exp(q·scale·Kᵀ − LSE), 0)
+        dS = P ∘ (dO·Vᵀ − Δ),  Δ = rowsum(dO ∘ O)
+        dQ = scale · dS·K,  dK = dSᵀ·(q·scale),  dV = Pᵀ·dO
+
+    with dK/dV of each KV head summed over its group of query heads.
+    Returns (dQ, dK, dV) in q's, k's and v's dtypes."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    qs = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    dof = do.float()
+    delta = _flash_bwd_delta(o, do)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(sk, device=q.device)[None, :]
+        p = torch.where(qi >= ki, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, hkv, group, d).sum(3)
+    dv = dv.reshape(b, sk, hkv, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """dQ by the Hopper dQ kernel (csrc/flash_bwd.cu)."""
+    global flash_bwd_dq_launches
+    from ray_tpu_torch.ops import _build
+
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _build.load_extension().flash_bwd_dq(q, k, v, do, lse, delta, dq,
+                                         float(scale), bool(causal))
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """(dK, dV) by the Hopper dK/dV kernel (csrc/flash_bwd.cu)."""
+    global flash_bwd_dkv_launches
+    from ray_tpu_torch.ops import _build
+
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _build.load_extension().flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv,
+                                          float(scale), bool(causal))
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        sm_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FlashAttention-2 backward: (dQ, dK, dV) from the forward's inputs,
+    its O and LSE [B,H,Sq] fp32, and dO = dL/dO [B,Sq,H,D].
+
+    A CUDA tensor runs the dQ kernel and the dK/dV kernel; a CPU tensor
+    the plain version. dK/dV hold each KV head's sum over its group."""
+    _check_qkv(q, k, v)
+    b, sq, h, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [B, H, Sq] = {(b, h, sq)} float32, "
+                         f"not {tuple(lse.shape)} {lse.dtype}")
+    if not all(t.device == q.device for t in (o, lse, do)):
+        raise ValueError("o, lse and do must be on q's device")
+    if q.device.type == "cpu":
+        return _flash_bwd_reference(q, k, v, o, lse, do, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    _check_kernel_inputs(q=q, k=k, v=v, do=do)
+    if do.dtype != q.dtype:
+        raise TypeError(f"do is {do.dtype}, q is {q.dtype}")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    lse = lse.contiguous()
+    delta = _flash_bwd_delta(o, do)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        o, _ = flash_attention_fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v)
+        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "flash attention backward on CUDA is the training slice "
-                "(ROADMAP.md Queue A, 'Training slice': kernels "
-                "_flash_bwd_dq_kernel and _flash_bwd_dkv_kernel)")
-        # CPU: differentiate the plain version (recomputed), as the JAX
-        # package differentiates its blockwise fallback off the TPU
-        with torch.enable_grad():
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            o, _ = _flash_fwd_reference(qq, kk, vv, ctx.causal, ctx.sm_scale)
-            dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), g)
+        q, k, v, o, lse = ctx.saved_tensors
+        if g.stride(-1) != 1:  # autograd may hand over any layout
+            g = g.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, ctx.causal,
+                                         ctx.sm_scale)
         return dq, dk, dv, None, None
 
 

@@ -15,7 +15,19 @@ extern "C" int ray_tpu_torch_flash_fwd(
     int64_t o_sb, int64_t o_ss, int64_t o_sh,
     float scale, int causal, void* stream);
 
-// The Python wrapper (ray_tpu_torch/ops/attention.py) checks devices,
+extern "C" int ray_tpu_torch_flash_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int dtype,
+    int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
+    const int64_t* strides, float scale, int causal, void* stream);
+
+extern "C" int ray_tpu_torch_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int dtype,
+    int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
+    const int64_t* strides, float scale, int causal, void* stream);
+
+// The Python wrappers (ray_tpu_torch/ops/attention.py) checks devices,
 // dtypes, shapes and strides before it calls this.
 void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                at::Tensor& o, at::Tensor& lse, double scale, bool causal) {
@@ -33,6 +45,49 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
+// [batch, sequence, head] strides of each tensor, in order
+static std::vector<int64_t> bsh_strides(std::initializer_list<at::Tensor> ts) {
+  std::vector<int64_t> out;
+  for (const auto& t : ts) {
+    out.push_back(t.stride(0));
+    out.push_back(t.stride(1));
+    out.push_back(t.stride(2));
+  }
+  return out;
+}
+
+void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                  const at::Tensor& dout, const at::Tensor& lse, const at::Tensor& delta,
+                  at::Tensor& dq, double scale, bool causal) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const auto st = bsh_strides({q, k, v, dout, dq});
+  const int rc = ray_tpu_torch_flash_bwd_dq(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(),
+      q.scalar_type() == at::kBFloat16 ? 1 : 0,
+      q.size(0), q.size(1), k.size(1), q.size(2), k.size(2), q.size(3),
+      st.data(), static_cast<float>(scale), causal ? 1 : 0,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                   const at::Tensor& dout, const at::Tensor& lse, const at::Tensor& delta,
+                   at::Tensor& dk, at::Tensor& dv, double scale, bool causal) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const auto st = bsh_strides({q, k, v, dout, dk, dv});
+  const int rc = ray_tpu_torch_flash_bwd_dkv(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(), dv.data_ptr(),
+      q.scalar_type() == at::kBFloat16 ? 1 : 0,
+      q.size(0), q.size(1), k.size(1), q.size(2), k.size(2), q.size(3),
+      st.data(), static_cast<float>(scale), causal ? 1 : 0,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd, "FlashAttention-2 forward (Hopper)");
+  m.def("flash_bwd_dq", &flash_bwd_dq, "FlashAttention-2 backward, dQ pass (Hopper)");
+  m.def("flash_bwd_dkv", &flash_bwd_dkv, "FlashAttention-2 backward, dK/dV pass (Hopper)");
 }

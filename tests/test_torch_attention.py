@@ -3,7 +3,8 @@ JAX package's (ray_tpu.ops.attention) on the CPU.
 
 Inputs come from numpy.random.default_rng and go to both. Tolerances:
 fp32 outputs 2e-5 and grads 5e-5 (tests/test_ops.py's, summation order
-only); the Pallas kernel, run in interpret mode, 2e-5 on O and LSE.
+only); the Pallas kernels, run in interpret mode, 2e-5 on O and LSE and
+5e-5 on dQ, dK and dV.
 """
 
 import functools
@@ -141,10 +142,68 @@ def test_flash_attention_grad_matches_jax(hkv):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal", [
+    (1, 128, 128, 2, 2, 32, True),
+    (1, 100, 100, 2, 2, 32, True),    # padded to 128 by the 64-row blocks
+    (1, 128, 128, 2, 2, 32, False),   # non-causal
+    (1, 64, 192, 2, 2, 32, True),     # Sq != Sk, top-left causal mask
+    (1, 128, 128, 4, 2, 32, True),    # GQA: JAX expands, the port sums
+])
+def test_flash_bwd_reference_matches_pallas_kernels(interpret_pallas, b, sq,
+                                                    sk, h, hkv, d, causal):
+    """The plain backward computes what _flash_bwd_dq_kernel and
+    _flash_bwd_dkv_kernel compute from the same O and LSE (the JAX LSE
+    [B*H, 1, Sq_pad] reshaped to the port's [B, H, Sq]); with GQA the
+    port's dK/dV are JAX's summed over each KV head's group."""
+    q, k, v = _qkv(11, b=b, sq=sq, sk=sk, h=h, hkv=hkv, d=d)
+    do = np.random.default_rng(12).standard_normal((b, sq, h, d), dtype=np.float32)
+    jq, jk, jv = _j(q, k, v)
+    jk, jv = JA.gqa_expand(jk, jv, h)
+    o, lse = JA._flash_fwd_pallas(jq, jk, jv, causal, None, 64, 64)
+    refs = JA._flash_bwd_pallas(jq, jk, jv, o, lse, jnp.asarray(do), causal,
+                                None, 64, 64)
+    lse = np.array(lse)[:, 0, :sq].reshape(b, h, sq)
+    grads = PA.flash_attention_bwd(*_t(q, k, v, np.array(o), lse, do),
+                                   causal=causal)
+    for name, out, ref in zip("qkv", grads, refs):
+        ref = np.asarray(ref)
+        if name != "q":
+            ref = ref.reshape(b, sk, hkv, h // hkv, d).sum(3)
+        np.testing.assert_allclose(out.numpy(), ref, atol=GRAD_ATOL,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_bwd_reference_is_autograd_of_forward():
+    """Sq != Sk with GQA: the plain backward equals autograd through the
+    plain forward (which differentiates the softmax directly)."""
+    q, k, v = _t(*_qkv(13, h=8, hkv=2, sq=40, sk=72))
+    do = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (2, 40, 8, 32), dtype=np.float32))
+    o, lse = PA._flash_fwd_reference(q, k, v)
+    grads = PA._flash_bwd_reference(q, k, v, o, lse, do)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    refs = torch.autograd.grad(PA._flash_fwd_reference(tq, tk, tv)[0],
+                               (tq, tk, tv), do)
+    for out, ref in zip(grads, refs):
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=GRAD_ATOL)
+
+
 def test_cpu_path_does_not_count_launches():
-    before = PA.flash_fwd_launches
-    PA.flash_attention_fwd(*_t(*_qkv(9, sq=16)))
-    assert PA.flash_fwd_launches == before
+    counters = ("flash_fwd_launches", "flash_bwd_dq_launches",
+                "flash_bwd_dkv_launches")
+    before = [getattr(PA, c) for c in counters]
+    q, k, v = (t.requires_grad_() for t in _t(*_qkv(9, sq=16)))
+    PA.flash_attention(q, k, v).sum().backward()
+    assert [getattr(PA, c) for c in counters] == before
+
+
+def test_flash_attention_bwd_rejects_bad_inputs():
+    q, k, v = _t(*_qkv(15, sq=16, h=4))
+    o, lse = PA.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        PA.flash_attention_bwd(q, k, v, o, lse.transpose(1, 2), o)
+    with pytest.raises(ValueError, match="do"):
+        PA.flash_attention_bwd(q, k, v, o, lse, o[:, :8])
 
 
 @pytest.mark.parametrize("bad", ["heads", "dims", "empty", "device"])

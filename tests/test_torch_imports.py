@@ -17,6 +17,7 @@ from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.decoding import Generator, init_cache
+from ray_tpu_torch.train import default_optimizer, init_state, make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
@@ -45,7 +46,7 @@ def test_port_imports_no_jax_and_no_ray_tpu():
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.ops, "
-            "ray_tpu_torch.models.convert; "
+            "ray_tpu_torch.models.convert, ray_tpu_torch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -62,6 +63,7 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "default_device", "init_params", "init_cache", "params_from_jax",
     "Generator", "ContinuousBatcher", "LLMEngine", "ContinuousLLMEngine",
+    "init_state", "make_train_step",
 ])
 def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
     cfg = T.config("debug")
@@ -74,6 +76,8 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         "ContinuousBatcher": lambda: ContinuousBatcher(cfg, {}),
         "LLMEngine": lambda: LLMEngine(LLMConfig(model="debug")),
         "ContinuousLLMEngine": lambda: ContinuousLLMEngine(LLMConfig(model="debug")),
+        "init_state": lambda: init_state(cfg, default_optimizer(cfg)),
+        "make_train_step": lambda: make_train_step(cfg, default_optimizer(cfg)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -171,4 +171,4 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.forward(dense, params, toks, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.loss_fn(dense, params, {"tokens": toks})
+        T.loss_fn(dense, params, {"tokens": toks}, mesh=object())
