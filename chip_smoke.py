@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout and
-holds each kernel against its plain PyTorch version on the card. Then
+holds each kernel against its plain PyTorch version on the card: bf16
+inputs run the forward and dQ on the tensor cores (wgmma + TMA), fp32
+inputs the CUDA-core kernels, and dK/dV runs on the CUDA cores for
+both. Then
 it drives the port's two paths at full width, each with the kernels'
 launch counts set to 0 just before it and read just after:
 
@@ -15,9 +18,11 @@ launch counts set to 0 just before it and read just after:
   with attention through the plain versions.
 
 Every phase prints JSON lines; any failure raises and the script exits
-non-zero. The line before the last lists the kernels with their times;
-the last is {"ok": true, "device": {...}}. Without a CUDA device it
-exits 1 before doing anything.
+non-zero. The line before the last lists the kernels with their times,
+design, HGMMA count (cuobjdump -sass of the built library) and resources
+(registers, shared memory, local bytes, as the runtime loaded them); the
+last is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
+before doing anything.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -38,17 +45,24 @@ MAX_TOKENS = 32
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# kernel vs plain version: both compute in fp32; fp32 differs only by
-# summation order; bf16 O rounds once more to bf16 (1 ulp of |O| <= ~4)
+# kernel vs plain version: both compute in fp32 and, in bf16, round P to
+# bf16 before P·V; fp32 differs only by summation order; bf16 O rounds
+# once more to bf16 (1 ulp of |O| <= ~4)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}  # (O, LSE)
 ATTN_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     # the continuous engine's largest prefill bucket; timed
     ("prefill", 1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
     # LLMEngine's prefill of the 4 smoke prompts (padded to the longest)
     ("prefill_batch4", 4, 1500, 1500, 32, 8, 128, True, torch.bfloat16),
+    # the training step's attention (llama2_7b_lora); timed
+    ("train_step", 8, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
     ("ragged", 2, 100, 100, 4, 4, 64, False, torch.float32),
     ("sq_ne_sk", 2, 64, 192, 8, 4, 32, True, torch.float32),
+    # their bf16 twins: tensor-core tiles at D=64 and D=32, ragged ends
+    ("ragged_bf16", 2, 100, 100, 4, 4, 64, False, torch.bfloat16),
+    ("sq_ne_sk_bf16", 2, 64, 192, 8, 4, 32, True, torch.bfloat16),
 ]
+TIMED_ATTN = {"prefill": 20, "train_step": 5}  # shape name: launches timed
 
 
 BWD_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
@@ -57,6 +71,10 @@ BWD_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     ("llama3_8b", 1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
     ("ragged", 2, 100, 100, 4, 4, 64, False, torch.float32),
     ("sq_ne_sk", 2, 64, 192, 8, 4, 32, True, torch.float32),
+    ("ragged_bf16", 2, 100, 100, 4, 4, 64, False, torch.bfloat16),
+    ("sq_ne_sk_bf16", 2, 64, 192, 8, 4, 32, True, torch.bfloat16),
+    # ragged D=128 tiles (1500 is no multiple of 128) under GQA
+    ("ragged_gqa", 2, 1500, 1500, 32, 8, 128, True, torch.bfloat16),
 ]
 FP32_BWD_TOL = 1e-4  # kernel vs plain in fp32: summation order only
 TRAIN_BATCH = 8
@@ -92,6 +110,7 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 # device activity kinds for a profile's breakdown, by kernel-name substring
+# (flash_fwd_kernel_sm90 and flash_bwd_dq_kernel_sm90 match the first)
 KINDS = (("flash attention kernels", ("flash_fwd_kernel", "flash_bwd_")),
          ("cuBLAS matmuls", ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
 
@@ -99,8 +118,9 @@ KINDS = (("flash attention kernels", ("flash_fwd_kernel", "flash_bwd_")),
 def profiled(fn, top: int = 8):
     """Run ``fn`` once under torch.profiler: wall ms, device-busy ms (the
     union of the device activity intervals, so nothing counts twice), the
-    summed device ms of each of KINDS (the rest as "other") and the top
-    device activities by summed time."""
+    summed device ms of each of KINDS (the rest as "other"), each flash
+    kernel's launches and ms, and the top device activities by summed
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,9 +144,11 @@ def profiled(fn, top: int = 8):
         kind = next((k for k, subs in KINDS if any(s in name for s in subs)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     tops = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    flash = {name[:80]: {"count": n, "ms": us / 1e3} for name, (n, us) in by_name.items()
+             if any(s_ in name for s_ in KINDS[0][1])}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "device_ms_by_kind": by_kind,
+            "device_ms_by_kind": by_kind, "flash_kernels": flash,
             "top_device_activities": [{"name": k[:80], "count": n, "ms": us / 1e3}
                                       for k, (n, us) in tops]}
 
@@ -357,8 +379,8 @@ def sdpa_bwd_ms(q, k, v, do, causal, iters):
 
 def flash_bwd_vs_plain(kernels, smi) -> None:
     """Each backward kernel against _flash_bwd_reference at the shapes the
-    training path (and llama3_8b) gives it, and at two ragged fp32 ones;
-    times at the training shape."""
+    training path (and llama3_8b) gives it, at two ragged shapes in fp32
+    and bf16 and at a ragged D=128 GQA one; times at the training shape."""
     from ray_tpu_torch.ops import attention as A
 
     with phase("flash_bwd_vs_plain"):
@@ -378,14 +400,18 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
                 tols = [FP32_BWD_TOL] * 3
             else:
                 # Kernel and plain version both compute in fp32 and round
-                # once to bf16, so each lies within one rounding of the fp32
-                # result: at most `gap`, the plain version's bf16-vs-fp32
-                # gap on these inputs. They are within 2 * gap of each
-                # other, plus fp32's summation-order tolerance.
+                # to bf16 (the plain version P and dS before the products
+                # they feed, and each output), so each lies within the
+                # rounding of the fp32 result: at most `gap`, the plain
+                # version's bf16-vs-fp32 gap on these inputs. They are
+                # within 2 * gap of each other, plus fp32's
+                # summation-order tolerance.
                 plain32 = A._flash_bwd_reference(q.float(), k.float(), v.float(),
                                                  o.float(), lse, do.float(), causal)
                 gaps = [max_abs(x, y) for x, y in zip(plain, plain32)]
                 row["bf16_vs_fp32_gap"] = gaps
+                # not gated: the tensor-core dQ against the fp32 computation
+                row["dq_vs_fp32"] = max_abs(grads[0], plain32[0])
                 tols = [2 * gap + FP32_BWD_TOL for gap in gaps]
                 del plain32
             errs = [max_abs(x, y) for x, y in zip(grads, plain)]
@@ -394,23 +420,21 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
                 scale, iters = d ** -0.5, 5
                 delta = A._flash_bwd_delta(o, do)
                 row["dq_ms"] = cuda_ms(lambda: A._flash_bwd_dq_cuda(
-                    q, k, v, do, lse, delta, causal, scale), iters)
+                    q, k, v, do, lse, delta, causal, scale), 4 * iters)
                 row["dkv_ms"] = cuda_ms(lambda: A._flash_bwd_dkv_cuda(
                     q, k, v, do, lse, delta, causal, scale), iters)
-                row["fwd_ms"] = cuda_ms(lambda: A.flash_attention_fwd(q, k, v, causal), iters)
-                row["fwd_bound_ms"], _ = attention_bound_ms(b, sq, sk, h, hkv, d, causal, dtype)
                 row["plain_ms"] = cuda_ms(lambda: A._flash_bwd_reference(
                     q, k, v, o, lse, do, causal), 2)
                 row["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, iters)
                 row["card"] = smi
-                for name, line, ms, err in (
-                        ("flash_bwd_dq", 164, row["dq_ms"], errs[0]),
-                        ("flash_bwd_dkv", 199, row["dkv_ms"], max(errs[1:]))):
+                for name, line, src, ms, err in (
+                        ("flash_bwd_dq", 164, "flash_bwd_dq_sm90.cu", row["dq_ms"], errs[0]),
+                        ("flash_bwd_dkv", 199, "flash_bwd.cu", row["dkv_ms"], max(errs[1:]))):
                     bound, by = bwd_bound_ms(name, b, sq, sk, h, hkv, d, causal, dtype)
                     row[f"{name}_bound_ms"] = bound
                     kernels[name] = {
                         "name": name, "route": "cuda",
-                        "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                        "source": f"ray_tpu_torch/ops/csrc/{src}",
                         "replaces": f"ray_tpu/ops/attention.py:{line}",
                         "max_abs_err": err, "ms": ms, "plain_ms": row["plain_ms"],
                         "bound_ms": bound, "bound_by": by,
@@ -564,6 +588,50 @@ def train_steps(smi) -> dict:
     return launches
 
 
+# the instantiation each main path launches (bf16, D=128), by mangled-name
+# substring, and its design
+SASS_FUNCTIONS = {"flash_fwd": ("flash_fwd_kernel_sm90ILi128E", "sm90_wgmma_tma"),
+                  "flash_bwd_dq": ("flash_bwd_dq_kernel_sm90ILi128E", "sm90_wgmma_tma"),
+                  "flash_bwd_dkv": ("flash_bwd_dkv_kernelI13__nv_bfloat16Li128E", "cuda_core")}
+
+
+def kernel_facts(kernels) -> None:
+    """Evidence of the tensor cores: each kernel's count of HGMMA (wgmma)
+    instructions in the built library's SASS (cuobjdump -sass), beside its
+    registers per thread at launch, static and dynamic shared memory and
+    local (spill) bytes as the runtime loaded it. A tensor-core design
+    with no HGMMA, or a CUDA-core one with any, fails."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from ray_tpu_torch.ops import _build
+
+    with phase("kernel_facts"):
+        lib = os.path.join(_build.BUILD_DIR, "ray_tpu_torch_kernels.so")
+        sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", lib],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        hgmma, func = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                func = m.group(1)
+            elif func is not None and "HGMMA" in line:
+                hgmma[func] = hgmma.get(func, 0) + 1
+        ext = _build.load_extension()
+        for name, (sub, design) in SASS_FUNCTIONS.items():
+            funcs = [f for f in re.findall(r"Function : (\S+)", sass) if sub in f]
+            if len(funcs) != 1:
+                raise AssertionError(f"{name}: {len(funcs)} SASS functions match {sub}")
+            row = kernels[name]
+            row["design"] = design
+            row["hgmma"] = hgmma.get(funcs[0], 0)
+            row["sass_function"] = funcs[0]
+            row["resources"] = dict(ext.kernel_attrs(name, 128))
+            emit({"kernel": name, **{k: row[k] for k in
+                                      ("design", "hgmma", "sass_function", "resources")}})
+            if (row["hgmma"] > 0) != (design == "sm90_wgmma_tma"):
+                raise AssertionError(f"{name}: design {design} with {row['hgmma']} HGMMA")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -602,15 +670,20 @@ def main() -> int:
             o, lse = A.flash_attention_fwd(q, k, v, causal)
             o_ref, lse_ref = A._flash_fwd_reference(q, k, v, causal)
             torch.cuda.synchronize()
-            err_o = float((o.float() - o_ref.float()).abs().max())
-            err_lse = float((lse - lse_ref).abs().max())
+            err_o = max_abs(o, o_ref)
+            err_lse = max_abs(lse, lse_ref)
             tol_o, tol_lse = TOL[dtype]
             row = {"shape": sname, "b": b, "sq": sq, "sk": sk, "h": h, "hkv": hkv,
                    "d": d, "causal": causal, "dtype": str(dtype),
                    "o_max_abs_err": err_o, "lse_max_abs_err": err_lse,
                    "tol_o": tol_o, "tol_lse": tol_lse}
-            if sname == "prefill":
-                iters = 20
+            if dtype == torch.bfloat16:
+                # not gated: what the bf16 rounding of P (and of O) costs
+                # against the fp32 computation on the same inputs
+                row["o_vs_fp32"] = max_abs(o, A._flash_fwd_reference(
+                    q.float(), k.float(), v.float(), causal)[0])
+            if sname in TIMED_ATTN:
+                iters = TIMED_ATTN[sname]
                 row["ms"] = cuda_ms(lambda: A.flash_attention_fwd(q, k, v, causal), iters)
                 row["plain_ms"] = cuda_ms(lambda: A._flash_fwd_reference(q, k, v, causal), iters)
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -619,17 +692,24 @@ def main() -> int:
                         qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
                 row["bound_ms"], row["bound_by"] = attention_bound_ms(
                     b, sq, sk, h, hkv, d, causal, dtype)
-                kernels["flash_fwd"] = {
-                    "name": "flash_fwd", "route": "cuda",
-                    "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-                    "replaces": "ray_tpu/ops/attention.py:120",
-                    "max_abs_err": err_o, "lse_max_abs_err": err_lse,
-                    **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}}
+                timed = {k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")}
+                if sname == "prefill":  # the serving path's shape
+                    kernels["flash_fwd"] = {
+                        "name": "flash_fwd", "route": "cuda",
+                        "source": "ray_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
+                        "replaces": "ray_tpu/ops/attention.py:120",
+                        "max_abs_err": err_o, "lse_max_abs_err": err_lse, **timed,
+                        "shape": "B=1 S=2048 H=32/8 D=128 causal bf16"}
+                else:  # the training path's shape
+                    kernels["flash_fwd"]["train_step_shape"] = {
+                        "max_abs_err": err_o, **timed,
+                        "shape": "B=8 S=2048 H=32/32 D=128 causal bf16"}
             emit(row)
             if not (err_o <= tol_o and err_lse <= tol_lse):
                 raise AssertionError(f"flash_fwd disagrees with its plain version at {row}")
             del q, k, v, o, lse, o_ref, lse_ref
+            torch.cuda.empty_cache()
 
     serving = serving_phases(kernels)
     gc.collect()
@@ -639,6 +719,7 @@ def main() -> int:
     flash_bwd_vs_plain(kernels, smi)
     train_full_width_check()
     train = train_steps(smi)
+    kernel_facts(kernels)
     for name, row in kernels.items():
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "train_step": train[name]}

@@ -15,7 +15,8 @@ import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("binding.cpp", "flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("binding.cpp", "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
+           "flash_bwd_dq_sm90.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

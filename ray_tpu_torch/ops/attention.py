@@ -6,11 +6,15 @@ Three tiers, all the same math (softmax(QK^T * scale + mask) V):
 - `blockwise_attention` : online softmax over KV chunks in a Python loop —
   O(S * block) memory, differentiable by autograd.
 - `flash_attention` : the FlashAttention-2 kernels written for Hopper on
-  a CUDA tensor: the forward (csrc/flash_fwd.cu) and, under autograd, the
-  dQ and dK/dV backward passes (csrc/flash_bwd.cu). On a CPU tensor their
-  plain versions `_flash_fwd_reference` and `_flash_bwd_reference` run.
-  A CUDA tensor never falls back to a plain version: the kernel launches
-  or the call raises.
+  a CUDA tensor: the forward and, under autograd, the dQ and dK/dV
+  backward passes. The kernel is chosen by dtype: bf16 runs the forward
+  and dQ on the tensor cores (csrc/flash_fwd_sm90.cu,
+  csrc/flash_bwd_dq_sm90.cu: wgmma + TMA), fp32 on the CUDA cores
+  (csrc/flash_fwd.cu, csrc/flash_bwd.cu); dK/dV runs on the CUDA cores
+  for both (csrc/flash_bwd.cu). On a CPU tensor their plain versions
+  `_flash_fwd_reference` and `_flash_bwd_reference` run. A CUDA tensor
+  never falls back to a plain version or to another kernel: the kernel
+  launches or the call raises.
 
 Layout at every public function is the JAX package's: [B, S, H, D].
 """
@@ -128,13 +132,23 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError("q, k, v must have one dtype")
 
 
+def _round_to(x, dtype):
+    """x rounded to dtype and back to fp32 (the identity for fp32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def _flash_fwd_reference(q, k, v, causal: bool = True,
                          sm_scale: Optional[float] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the flash forward kernel: what
+    """Plain version of the flash forward kernels: what
     ray_tpu/ops/attention.py::_flash_fwd_kernel computes, in fp32, as one
     softmax over all keys. Returns (O [B,Sq,H,D] in q's dtype,
-    LSE [B,H,Sq] fp32 = m + log(max(l, 1e-30)))."""
+    LSE [B,H,Sq] fp32 = m + log(max(l, 1e-30))).
+
+    P = exp(s - m) is rounded to the input dtype before P·V, as the
+    tensor-core kernel must for bf16 and as the JAX package's
+    mha_reference does (`probs.astype(v.dtype)`); l sums the unrounded P.
+    In fp32 the rounding is the identity."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else d ** -0.5
@@ -149,7 +163,7 @@ def _flash_fwd_reference(q, k, v, causal: bool = True,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)
+    o = torch.einsum("bhqk,bkhd->bqhd", _round_to(p, q.dtype), vf) / l.transpose(1, 2)
     lse = (m + torch.log(l))[..., 0]
     return o.to(q.dtype), lse
 
@@ -168,6 +182,23 @@ def _check_kernel_inputs(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous in its last dim")
 
 
+def _check_tma_operands(**tensors) -> None:
+    """What the tensor-core kernels' TMA loads take, from each tensor's
+    metadata alone: a 16-byte-aligned base address, and batch, sequence
+    and head strides that are multiples of 16 bytes and under 2**40 bytes
+    (a dim of extent 1 is never stepped over, so its stride is free)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: TMA needs a 16-byte-aligned base address, "
+                             f"not {t.data_ptr():#x}")
+        for dim, what in ((0, "batch"), (1, "sequence"), (2, "head")):
+            nbytes = t.stride(dim) * t.element_size()
+            if t.shape[dim] > 1 and (nbytes % 16 or not 0 < nbytes < 2 ** 40):
+                raise ValueError(f"{name}: TMA needs a {what} stride that is a "
+                                 f"positive multiple of 16 bytes under 2**40, "
+                                 f"not {nbytes} bytes")
+
+
 def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: Optional[float]):
     global flash_fwd_launches
     _check_kernel_inputs(q=q, k=k, v=v)
@@ -177,8 +208,14 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: Optional[float]):
     scale = sm_scale if sm_scale is not None else d ** -0.5
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    ext = _build.load_extension()
+    if q.dtype == torch.bfloat16:  # tensor cores
+        _check_tma_operands(q=q, k=k, v=v)
+        launch = ext.flash_fwd_sm90
+    else:  # fp32: CUDA cores
+        launch = ext.flash_fwd
     # launches on the current stream; raises if the launch is refused
-    _build.load_extension().flash_fwd(q, k, v, o, lse, float(scale), bool(causal))
+    launch(q, k, v, o, lse, float(scale), bool(causal))
     flash_fwd_launches += 1
     return o, lse
 
@@ -219,7 +256,9 @@ def _flash_bwd_reference(q, k, v, o, lse, do, causal: bool = True,
         dQ = scale · dS·K,  dK = dSᵀ·(q·scale),  dV = Pᵀ·dO
 
     with dK/dV of each KV head summed over its group of query heads.
-    Returns (dQ, dK, dV) in q's, k's and v's dtypes."""
+    P and dS are rounded to the input dtype before the products they
+    feed, as the tensor-core dQ kernel must round dS for bf16 (the
+    identity in fp32). Returns (dQ, dK, dV) in q's, k's and v's dtypes."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -236,23 +275,29 @@ def _flash_bwd_reference(q, k, v, o, lse, do, causal: bool = True,
         ki = torch.arange(sk, device=q.device)[None, :]
         p = torch.where(qi >= ki, p, 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - delta[..., None])
+    ds = _round_to(p * (dp - delta[..., None]), q.dtype)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _round_to(p, q.dtype), dof)
     dk = dk.reshape(b, sk, hkv, group, d).sum(3)
     dv = dv.reshape(b, sk, hkv, group, d).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dQ by the Hopper dQ kernel (csrc/flash_bwd.cu)."""
+    """dQ by the Hopper dQ kernel: bf16 on the tensor cores
+    (csrc/flash_bwd_dq_sm90.cu), fp32 on the CUDA cores (csrc/flash_bwd.cu)."""
     global flash_bwd_dq_launches
     from ray_tpu_torch.ops import _build
 
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _build.load_extension().flash_bwd_dq(q, k, v, do, lse, delta, dq,
-                                         float(scale), bool(causal))
+    ext = _build.load_extension()
+    if q.dtype == torch.bfloat16:
+        _check_tma_operands(q=q, k=k, v=v, do=do)
+        launch = ext.flash_bwd_dq_sm90
+    else:
+        launch = ext.flash_bwd_dq
+    launch(q, k, v, do, lse, delta, dq, float(scale), bool(causal))
     flash_bwd_dq_launches += 1
     return dq
 

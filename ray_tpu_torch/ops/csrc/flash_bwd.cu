@@ -1,5 +1,8 @@
-// FlashAttention-2 backward for Hopper (sm_90a), hand-written CUDA C++:
-// two kernels, a dQ pass and a dK/dV pass.
+// FlashAttention-2 backward for Hopper (sm_90a), hand-written CUDA C++ on
+// the CUDA cores: two kernels, a dQ pass and a dK/dV pass. The dK/dV pass
+// serves fp32 and bf16 inputs; the dQ pass here serves fp32 inputs only,
+// bf16 ones go to the tensor-core dQ kernel of flash_bwd_dq_sm90.cu
+// (tensor cores have no fp32 mode, and TF32 keeps ~3 digits).
 //
 // Replaces ray_tpu/ops/attention.py::_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (the Pallas TPU kernels called from
@@ -11,6 +14,10 @@
 //   dV = P^T dO,  dK = dS^T (q*scale)  (dK/dV pass; in k's and v's dtype)
 // with the causal mask top-left aligned (key index <= query index, also
 // when Sq != Sk), keys >= Sk and queries >= Sq masked inside the kernel.
+// P and dS stay fp32 here also for bf16 inputs, where the plain version
+// _flash_bwd_reference rounds them to bf16 before their products (as the
+// tensor-core dQ kernel must round dS); the bf16 checks' tolerance, twice
+// the plain version's distance from fp32 plus 1e-4, covers the difference.
 //
 // Layout: q, dO [B, Sq, H, D] and k, v [B, Sk, Hkv, D] are read through
 // their batch, sequence and head strides (the last dim contiguous), and
@@ -24,10 +31,10 @@
 // What bounds it on an H100: at the training shape (B=8, S=2048, 32 heads,
 // D=128, causal) the dQ pass does 6*D and the dK/dV pass 8*D operations per
 // (q, k) pair the mask keeps: 600-700 operations per byte they must move,
-// above the card's ~295, so both are bound by arithmetic. Like
-// flash_fwd.cu, this first version does that arithmetic in fp32 on the
-// CUDA cores (67 TFLOP/s), not on the tensor cores (989 TFLOP/s bf16);
-// wgmma/TMA tiles are a later step. What the design does about the
+// above the card's ~295, so both are bound by arithmetic. These kernels
+// do that arithmetic in fp32 on the CUDA cores (67 TFLOP/s), also for bf16
+// dK/dV, not on the tensor cores (989 TFLOP/s bf16); a wgmma/TMA dK/dV is
+// a later step. What the design does about the
 // arithmetic it has: each CTA keeps its own tile (q and dO rows for dQ; K
 // and V rows for dK/dV) in shared memory in fp32 for its whole loop and
 // streams the other side through in 32-row tiles; each of 256 threads holds
@@ -95,10 +102,11 @@ constexpr int dq_smem_floats() {
   return 2 * DQ_BM * (D + 1) + 2 * DQ_BN * (D + 1) + DQ_BM * (DQ_BN + 1);
 }
 
-// dQ pass: one CTA per (64-row query tile, query head, batch); loops over
-// the key tiles up to the diagonal.
-template <typename T, int D>
+// dQ pass (fp32): one CTA per (64-row query tile, query head, batch); loops
+// over the key tiles up to the diagonal.
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
+  using T = float;
   extern __shared__ float smem[];
   float* qs = smem;                     // [BM][D+1], q * scale
   float* dos = qs + DQ_BM * (D + 1);    // [BM][D+1], dO
@@ -343,14 +351,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(FlashBwdArgs a) {
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const FlashBwdArgs& a, int batch, cudaStream_t stream) {
   constexpr int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.sq + DQ_BM - 1) / DQ_BM, a.h, batch);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(a);
+  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,33 +374,27 @@ int launch_dkv(const FlashBwdArgs& a, int batch, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_d(const FlashBwdArgs& a, int batch, int d, bool dq_pass, cudaStream_t stream) {
+int launch_dkv_d(const FlashBwdArgs& a, int batch, int d, cudaStream_t stream) {
   switch (d) {
-    case 32: return dq_pass ? launch_dq<T, 32>(a, batch, stream) : launch_dkv<T, 32>(a, batch, stream);
-    case 64: return dq_pass ? launch_dq<T, 64>(a, batch, stream) : launch_dkv<T, 64>(a, batch, stream);
-    case 128: return dq_pass ? launch_dq<T, 128>(a, batch, stream) : launch_dkv<T, 128>(a, batch, stream);
+    case 32: return launch_dkv<T, 32>(a, batch, stream);
+    case 64: return launch_dkv<T, 64>(a, batch, stream);
+    case 128: return launch_dkv<T, 128>(a, batch, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-int launch(const FlashBwdArgs& a, int dtype, int batch, int d, bool dq_pass, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(a, batch, d, dq_pass, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(a, batch, d, dq_pass, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 Strides strides_at(const int64_t* st, int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
 
 }  // namespace
 
-// Plain C entry points. dtype: 0 = float32, 1 = bfloat16. `strides` holds
-// [batch, sequence, head] strides in elements for each tensor in argument
-// order (dq pass: q, k, v, dout, dq; dk/dv pass: q, k, v, dout, dk, dv).
-// Each returns a cudaError_t value: 0 when the launch was accepted.
+// Plain C entry points. The dQ pass takes float32; dK/dV's dtype: 0 =
+// float32, 1 = bfloat16. `strides` holds [batch, sequence, head] strides
+// in elements for each tensor in argument order (dq pass: q, k, v, dout,
+// dq; dk/dv pass: q, k, v, dout, dk, dv). Each returns a cudaError_t
+// value: 0 when the launch was accepted.
 extern "C" int ray_tpu_torch_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, int dtype,
+    const float* lse, const float* delta, void* dq,
     int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
     const int64_t* strides, float scale, int causal, void* stream) {
   FlashBwdArgs a{};
@@ -402,7 +404,13 @@ extern "C" int ray_tpu_torch_flash_bwd_dq(
   a.dq_st = strides_at(strides, 4);
   a.sq = sq; a.sk = sk; a.h = heads; a.group = heads / kv_heads;
   a.scale = scale; a.causal = causal;
-  return launch(a, dtype, batch, head_dim, true, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return launch_dq<32>(a, batch, s);
+    case 64: return launch_dq<64>(a, batch, s);
+    case 128: return launch_dq<128>(a, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int ray_tpu_torch_flash_bwd_dkv(
@@ -418,5 +426,18 @@ extern "C" int ray_tpu_torch_flash_bwd_dkv(
   a.dk_st = strides_at(strides, 4); a.dv_st = strides_at(strides, 5);
   a.sq = sq; a.sk = sk; a.h = heads; a.group = heads / kv_heads;
   a.scale = scale; a.causal = causal;
-  return launch(a, dtype, batch, head_dim, false, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dkv_d<float>(a, batch, head_dim, s);
+  if (dtype == 1) return launch_dkv_d<__nv_bfloat16>(a, batch, head_dim, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the bf16 dK/dV kernel for head_dim (for cudaFuncGetAttributes), or null
+extern "C" const void* ray_tpu_torch_flash_bwd_dkv_kernel(int head_dim) {
+  switch (head_dim) {
+    case 32: return reinterpret_cast<const void*>(flash_bwd_dkv_kernel<__nv_bfloat16, 32>);
+    case 64: return reinterpret_cast<const void*>(flash_bwd_dkv_kernel<__nv_bfloat16, 64>);
+    case 128: return reinterpret_cast<const void*>(flash_bwd_dkv_kernel<__nv_bfloat16, 128>);
+    default: return nullptr;
+  }
 }

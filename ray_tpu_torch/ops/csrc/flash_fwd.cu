@@ -1,8 +1,11 @@
-// FlashAttention-2 forward for Hopper (sm_90a), hand-written CUDA C++.
+// FlashAttention-2 forward for Hopper (sm_90a), hand-written CUDA C++, on
+// the CUDA cores: the kernel for fp32 inputs. bf16 inputs go to the
+// tensor-core kernel of flash_fwd_sm90.cu; tensor cores have no fp32 mode
+// (TF32 keeps ~3 digits), so fp32 inputs stay here.
 //
 // Replaces ray_tpu/ops/attention.py::_flash_fwd_kernel (the Pallas TPU
 // kernel called from _flash_fwd_pallas). Same function:
-//   O   = softmax(scale * Q K^T + mask) V        (fp32 math, O in input dtype)
+//   O   = softmax(scale * Q K^T + mask) V        (fp32 math and O)
 //   LSE = m + log(max(l, 1e-30))                  (fp32, one value per q row)
 // with the causal mask top-left aligned (key index <= query index, no
 // offset even when Sq != Sk), keys >= Sk masked with NEG_INF = -1e30, and
@@ -16,20 +19,16 @@
 //
 // What bounds it on an H100: at the serving prefill shape (S=2048, D=128,
 // causal) attention does ~800 operations per byte it must move, so it is
-// bound by arithmetic, not by HBM. This first kernel does its arithmetic in
-// fp32 on the CUDA cores (67 TFLOP/s), as the Pallas body does, not on the
-// tensor cores (989 TFLOP/s bf16), so it stays well above the card's bound.
+// bound by arithmetic, not by HBM: in fp32 by the CUDA cores (67 TFLOP/s).
 // What the design does about the arithmetic it has: each CTA stages one
 // 64-row Q tile (pre-scaled, fp32) and 32-row K/V tiles in shared memory;
 // each of 256 threads keeps a 4x2 register tile of scores and a 4x(D/16)
 // register tile of the output, so every shared-memory read feeds several
 // FMAs; rows are padded by one float so neither operand read conflicts on
 // banks; key tiles wholly above the causal diagonal are skipped, and the
-// heaviest (last) query tiles are scheduled first. wgmma/TMA tiles are a
-// later step.
+// heaviest (last) query tiles are scheduled first.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -54,17 +53,12 @@ struct FlashFwdArgs {
   int causal;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 template <int D>
 constexpr int smem_floats() {
   return BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashFwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;                 // [BM][D+1], q * scale
@@ -79,13 +73,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashFwdArgs a) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.group;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
   for (int idx = tid; idx < BM * D; idx += NT) {
     const int r = idx / D, c = idx % D, qi = q0 + r;
-    qs[r * (D + 1) + c] = qi < a.sq ? to_f32(qp[qi * a.q_ss + c]) * a.scale : 0.f;
+    qs[r * (D + 1) + c] = qi < a.sq ? qp[qi * a.q_ss + c] * a.scale : 0.f;
   }
 
   float acc[4][DJ];
@@ -106,8 +100,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashFwdArgs a) {
     for (int idx = tid; idx < BN * D; idx += NT) {
       const int r = idx / D, c = idx % D, ki = k0 + r;
       const bool ok = ki < a.sk;  // zero rows past Sk: p is 0 there, v must not be NaN
-      ks[r * (D + 1) + c] = ok ? to_f32(kp[ki * a.k_ss + c]) : 0.f;
-      vs[r * D + c] = ok ? to_f32(vp[ki * a.v_ss + c]) : 0.f;
+      ks[r * (D + 1) + c] = ok ? kp[ki * a.k_ss + c] : 0.f;
+      vs[r * D + c] = ok ? vp[ki * a.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -178,41 +172,31 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashFwdArgs a) {
     const int qi = q0 + ty + 16 * i;
     if (qi < a.sq) {
       const float denom = fmaxf(lt, 1e-30f);
-      T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + qi * a.o_ss;
+      float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh + qi * a.o_ss;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) store(op + tx + 16 * j, acc[i][j] / denom);
+      for (int j = 0; j < DJ; ++j) op[tx + 16 * j] = acc[i][j] / denom;
       if (tx == 0) a.lse[(static_cast<int64_t>(b) * a.h + h) * a.sq + qi] = m[i] + logf(denom);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const FlashFwdArgs& a, int batch, cudaStream_t stream) {
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.sq + BM - 1) / BM, a.h, batch);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(a);
+  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(const FlashFwdArgs& a, int batch, int d, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(a, batch, stream);
-    case 64: return launch<T, 64>(a, batch, stream);
-    case 128: return launch<T, 128>(a, batch, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// Plain C entry point. dtype: 0 = float32, 1 = bfloat16. Strides are in
-// elements. Returns a cudaError_t value: 0 when the launch was accepted.
+// Plain C entry point for float32 inputs. Strides are in elements. Returns
+// a cudaError_t value: 0 when the launch was accepted.
 extern "C" int ray_tpu_torch_flash_fwd(
-    const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -223,7 +207,10 @@ extern "C" int ray_tpu_torch_flash_fwd(
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                  sq, sk, heads, heads / kv_heads, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(a, batch, head_dim, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(a, batch, head_dim, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 32: return launch<32>(a, batch, s);
+    case 64: return launch<64>(a, batch, s);
+    case 128: return launch<128>(a, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

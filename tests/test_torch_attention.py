@@ -109,6 +109,25 @@ def test_flash_fwd_reference_matches_pallas_kernel(interpret_pallas, sq, sk,
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal", [
+    (1, 128, 128, 2, 2, 128, True),   # the tensor-core kernel's head dim
+    (1, 200, 200, 4, 2, 128, True),   # Sq no multiple of 128, GQA
+    (1, 200, 200, 4, 2, 128, False),
+])
+def test_flash_fwd_reference_matches_pallas_kernel_d128(interpret_pallas, b, sq, sk,
+                                                        h, hkv, d, causal):
+    """The plain forward against _flash_fwd_kernel at D=128 and at ragged
+    GQA tiles (JAX expands the KV heads, the port reads them grouped)."""
+    q, k, v = _qkv(16, b=b, sq=sq, sk=sk, h=h, hkv=hkv, d=d)
+    jq, jk, jv = _j(q, k, v)
+    jk, jv = JA.gqa_expand(jk, jv, h)
+    o_ref, lse_ref = JA._flash_fwd_pallas(jq, jk, jv, causal, None, 64, 64)
+    lse_ref = np.asarray(lse_ref)[:, 0, :sq].reshape(b, h, sq)
+    o, lse = PA.flash_attention_fwd(*_t(q, k, v), causal=causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL)
+
+
 def test_flash_fwd_reference_gqa_is_expanded_mha():
     q, k, v = _qkv(6, h=8, hkv=2, sq=48, sk=80)
     tq, tk, tv = _t(q, k, v)
@@ -148,6 +167,8 @@ def test_flash_attention_grad_matches_jax(hkv):
     (1, 128, 128, 2, 2, 32, False),   # non-causal
     (1, 64, 192, 2, 2, 32, True),     # Sq != Sk, top-left causal mask
     (1, 128, 128, 4, 2, 32, True),    # GQA: JAX expands, the port sums
+    (1, 128, 128, 2, 2, 128, True),   # the tensor-core kernel's head dim
+    (1, 200, 200, 4, 2, 128, True),   # Sq no multiple of 128, GQA
 ])
 def test_flash_bwd_reference_matches_pallas_kernels(interpret_pallas, b, sq,
                                                     sk, h, hkv, d, causal):
@@ -219,3 +240,82 @@ def test_flash_attention_fwd_rejects_bad_inputs(bad):
         q, k, v = (t.to("meta") for t in (q, k, v))
     with pytest.raises(ValueError):
         PA.flash_attention_fwd(q, k, v)
+
+
+def _by_hand(q, k, v, do, round_p, round_ds):
+    """The plain versions' arithmetic written out for MHA, with or without
+    rounding P and dS to bf16 before the products they feed: (O, dQ, dV)."""
+    dtype = q.dtype
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float() * scale, k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    qi = torch.arange(q.shape[1])[:, None]
+    s = torch.where(qi >= torch.arange(k.shape[1])[None, :], s, PA.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    pr = p.to(dtype).float() if round_p else p
+    o = torch.einsum("bhqk,bkhd->bqhd", pr, vf) / l.transpose(1, 2)
+    lse = (m + torch.log(l))[..., 0]
+    p = torch.exp(s - lse[..., None])
+    p = torch.where(qi >= torch.arange(k.shape[1])[None, :], p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - PA._flash_bwd_delta(o.to(dtype), do)[..., None])
+    ds = ds.to(dtype).float() if round_ds else ds
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float() if round_p else p, dof)
+    return o.to(dtype), dq.to(dtype), dv.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plain_versions_round_p_and_ds_to_input_dtype(dtype):
+    """In bf16 the plain versions round P (before P·V and Pᵀ·dO) and dS
+    (before dS·K) to bf16, as the tensor-core kernels must; in fp32 that
+    rounding is the identity and they compute what they did before."""
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(17, b=1, sq=64, h=2, d=32)))
+    do = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (1, 64, 2, 32), dtype=np.float32)).to(dtype)
+    o, lse = PA._flash_fwd_reference(q, k, v)
+    dq, _, dv = PA._flash_bwd_reference(q, k, v, o, lse, do)
+    rounded = _by_hand(q, k, v, do, round_p=True, round_ds=True)
+    unrounded = _by_hand(q, k, v, do, round_p=False, round_ds=False)
+    for name, got, want, other in zip(("o", "dq", "dv"), (o, dq, dv), rounded, unrounded):
+        np.testing.assert_array_equal(got.float().numpy(), want.float().numpy(),
+                                      err_msg=name)
+        assert torch.equal(got, other) == (dtype == torch.float32), name
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("bad", ["base", "head_stride", "seq_stride", "batch_stride"])
+def test_tma_preconditions_raise(bad):
+    """The tensor-core kernels read bf16 operands by TMA: a base address or
+    a batch/sequence/head stride that is no multiple of 16 bytes raises
+    before any launch, from the tensor's metadata alone."""
+    if bad == "base":  # one element (2 bytes) past an aligned allocation
+        t = _bf16(2 * 8 * 4 * 32 + 1)[1:].view(2, 8, 4, 32)
+    elif bad == "head_stride":  # 36 columns per head row: 72 bytes
+        t = _bf16((2, 8, 4, 36))[..., :32]
+    elif bad == "seq_stride":  # 3 heads of 36 padded to 108 columns: 216 bytes
+        t = _bf16((2, 8, 108))[..., :96].view(2, 8, 3, 32)
+    else:  # batches 8 x 4 x 32 + 4 elements apart: 2056 bytes
+        t = _bf16((2, 8 * 4 * 32 + 4))[:, :8 * 4 * 32].view(2, 8, 4, 32)
+    name = {"base": "base address", "head_stride": "head stride",
+            "seq_stride": "sequence stride", "batch_stride": "batch stride"}[bad]
+    with pytest.raises(ValueError, match=f"q: TMA needs a.*{name.split()[0]}"):
+        PA._check_tma_operands(q=t)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "head_slice", "extent_one"])
+def test_tma_preconditions_accept(case):
+    """Contiguous [B, S, H, D], a slice of heads (strides stay multiples of
+    16 bytes), and a dim of extent 1 whose stride is never stepped over."""
+    if case == "contiguous":
+        t = _bf16((2, 8, 4, 32))
+    elif case == "head_slice":
+        t = _bf16((2, 8, 6, 32))[:, :, 1:5]
+    else:  # extent-1 batch and head dims with strides TMA could not take
+        t = torch.as_strided(_bf16(8 * 32), (1, 8, 1, 32), (3, 32, 5, 1))
+    PA._check_tma_operands(q=t, k=t, v=t)
