@@ -4,11 +4,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout and
 holds each kernel against its plain PyTorch version on the card: bf16
-inputs run the forward and dQ on the tensor cores (wgmma + TMA), fp32
-inputs the CUDA-core kernels, and dK/dV runs on the CUDA cores for
-both. Then
-it drives the port's two paths at full width, each with the kernels'
-launch counts set to 0 just before it and read just after:
+inputs run the forward, dQ and dK/dV on the tensor cores (wgmma + TMA),
+fp32 inputs the CUDA-core kernels. Then it drives the port's two paths
+at full width, each with the kernels' launch counts set to 0 just
+before it and read just after:
 
 - serving: llama3_8b (all 32 layers, random bf16 weights from seed 0)
   through ray_tpu_torch.llm.LLMEngine and ContinuousLLMEngine;
@@ -21,8 +20,9 @@ Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
 design, HGMMA count (cuobjdump -sass of the built library) and resources
 (registers, shared memory, local bytes, as the runtime loaded them); the
-last is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
-before doing anything.
+last is {"ok": true, "device": {...}}. The build is printed, with
+ptxas's report of each kernel's registers, spills and warnings. Without
+a CUDA device it exits 1 before doing anything.
 """
 
 from __future__ import annotations
@@ -75,6 +75,10 @@ BWD_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     ("sq_ne_sk_bf16", 2, 64, 192, 8, 4, 32, True, torch.bfloat16),
     # ragged D=128 tiles (1500 is no multiple of 128) under GQA
     ("ragged_gqa", 2, 1500, 1500, 32, 8, 128, True, torch.bfloat16),
+    # Sk > Sq under the causal mask, ragged key tile: keys >= Sq see no
+    # query (whole 128-key tiles of the dK/dV kernel among them), so their
+    # dK/dV must be zero
+    ("sk_gt_sq_bf16", 1, 100, 300, 8, 2, 128, True, torch.bfloat16),
 ]
 FP32_BWD_TOL = 1e-4  # kernel vs plain in fp32: summation order only
 TRAIN_BATCH = 8
@@ -380,7 +384,9 @@ def sdpa_bwd_ms(q, k, v, do, causal, iters):
 def flash_bwd_vs_plain(kernels, smi) -> None:
     """Each backward kernel against _flash_bwd_reference at the shapes the
     training path (and llama3_8b) gives it, at two ragged shapes in fp32
-    and bf16 and at a ragged D=128 GQA one; times at the training shape."""
+    and bf16, at a ragged D=128 GQA one and at one where trailing keys see
+    no query; every grad finite, and under the causal mask the dK/dV of
+    keys >= Sq exactly zero; times at the training shape."""
     from ray_tpu_torch.ops import attention as A
 
     with phase("flash_bwd_vs_plain"):
@@ -410,12 +416,18 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
                                                  o.float(), lse, do.float(), causal)
                 gaps = [max_abs(x, y) for x, y in zip(plain, plain32)]
                 row["bf16_vs_fp32_gap"] = gaps
-                # not gated: the tensor-core dQ against the fp32 computation
+                # not gated: the tensor-core kernels against the fp32 computation
                 row["dq_vs_fp32"] = max_abs(grads[0], plain32[0])
+                row["dkv_vs_fp32"] = [max_abs(x, y) for x, y in zip(grads[1:], plain32[1:])]
                 tols = [2 * gap + FP32_BWD_TOL for gap in gaps]
                 del plain32
             errs = [max_abs(x, y) for x, y in zip(grads, plain)]
             row.update(max_abs_err=dict(zip(("dq", "dk", "dv"), errs)), tol=tols)
+            finite = all(bool(torch.isfinite(g).all()) for g in grads)
+            # top-left causal mask: key j is seen by queries i >= j only
+            unseen_zero = not (causal and sk > sq) or all(
+                not bool(g[:, sq:].any()) for g in grads[1:])
+            row.update(finite=finite, unseen_keys_zero=unseen_zero)
             if sname == "train_step":
                 scale, iters = d ** -0.5, 5
                 delta = A._flash_bwd_delta(o, do)
@@ -429,7 +441,8 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
                 row["card"] = smi
                 for name, line, src, ms, err in (
                         ("flash_bwd_dq", 164, "flash_bwd_dq_sm90.cu", row["dq_ms"], errs[0]),
-                        ("flash_bwd_dkv", 199, "flash_bwd.cu", row["dkv_ms"], max(errs[1:]))):
+                        ("flash_bwd_dkv", 199, "flash_bwd_dkv_sm90.cu", row["dkv_ms"],
+                         max(errs[1:]))):
                     bound, by = bwd_bound_ms(name, b, sq, sk, h, hkv, d, causal, dtype)
                     row[f"{name}_bound_ms"] = bound
                     kernels[name] = {
@@ -445,7 +458,7 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
                         "shape": "B=8 S=2048 H=32/32 D=128 causal bf16"}
                 del delta
             emit(row)
-            if not all(e <= t for e, t in zip(errs, tols)):
+            if not (all(e <= t for e, t in zip(errs, tols)) and finite and unseen_zero):
                 raise AssertionError(f"flash backward disagrees with its plain version at {row}")
             del q, k, v, do, o, lse, grads, plain
             torch.cuda.empty_cache()
@@ -592,7 +605,7 @@ def train_steps(smi) -> dict:
 # substring, and its design
 SASS_FUNCTIONS = {"flash_fwd": ("flash_fwd_kernel_sm90ILi128E", "sm90_wgmma_tma"),
                   "flash_bwd_dq": ("flash_bwd_dq_kernel_sm90ILi128E", "sm90_wgmma_tma"),
-                  "flash_bwd_dkv": ("flash_bwd_dkv_kernelI13__nv_bfloat16Li128E", "cuda_core")}
+                  "flash_bwd_dkv": ("flash_bwd_dkv_kernel_sm90ILi128E", "sm90_wgmma_tma")}
 
 
 def kernel_facts(kernels) -> None:
@@ -658,7 +671,7 @@ def main() -> int:
 
     with phase("build"):
         t0 = time.perf_counter()
-        _build.load_extension()
+        _build.load_extension(verbose=True)  # ptxas's report per kernel
         emit({"build_s": time.perf_counter() - t0, "dir": _build.BUILD_DIR})
 
     with phase("kernel_vs_plain"):

@@ -16,15 +16,18 @@ import threading
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("binding.cpp", "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-           "flash_bwd_dq_sm90.cu")
-CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
+           "flash_bwd_dq_sm90.cu", "flash_bwd_dkv_sm90.cu")
+# -Xptxas=-v: ptxas reports each kernel's registers, shared memory and
+# spills, and warnings such as C7512 (wgmma serialized), in a verbose build
+CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _ext = None
 
 
 def load_extension(verbose: bool = False):
-    """The compiled extension module (built on first use)."""
+    """The compiled extension module (built on first use; ``verbose``
+    prints the build, ptxas's report included)."""
     global _ext
     with _lock:
         if _ext is None:

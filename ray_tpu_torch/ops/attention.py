@@ -7,12 +7,11 @@ Three tiers, all the same math (softmax(QK^T * scale + mask) V):
   O(S * block) memory, differentiable by autograd.
 - `flash_attention` : the FlashAttention-2 kernels written for Hopper on
   a CUDA tensor: the forward and, under autograd, the dQ and dK/dV
-  backward passes. The kernel is chosen by dtype: bf16 runs the forward
-  and dQ on the tensor cores (csrc/flash_fwd_sm90.cu,
-  csrc/flash_bwd_dq_sm90.cu: wgmma + TMA), fp32 on the CUDA cores
-  (csrc/flash_fwd.cu, csrc/flash_bwd.cu); dK/dV runs on the CUDA cores
-  for both (csrc/flash_bwd.cu). On a CPU tensor their plain versions
-  `_flash_fwd_reference` and `_flash_bwd_reference` run. A CUDA tensor
+  backward passes. The kernel is chosen by dtype: bf16 runs all three on
+  the tensor cores (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_dq_sm90.cu,
+  csrc/flash_bwd_dkv_sm90.cu: wgmma + TMA), fp32 on the CUDA cores
+  (csrc/flash_fwd.cu, csrc/flash_bwd.cu). On a CPU tensor their plain
+  versions `_flash_fwd_reference` and `_flash_bwd_reference` run. A CUDA tensor
   never falls back to a plain version or to another kernel: the kernel
   launches or the call raises.
 
@@ -257,7 +256,7 @@ def _flash_bwd_reference(q, k, v, o, lse, do, causal: bool = True,
 
     with dK/dV of each KV head summed over its group of query heads.
     P and dS are rounded to the input dtype before the products they
-    feed, as the tensor-core dQ kernel must round dS for bf16 (the
+    feed, as the tensor-core kernels must round them for bf16 (the
     identity in fp32). Returns (dQ, dK, dV) in q's, k's and v's dtypes."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -303,14 +302,20 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """(dK, dV) by the Hopper dK/dV kernel (csrc/flash_bwd.cu)."""
+    """(dK, dV) by the Hopper dK/dV kernel: bf16 on the tensor cores
+    (csrc/flash_bwd_dkv_sm90.cu), fp32 on the CUDA cores (csrc/flash_bwd.cu)."""
     global flash_bwd_dkv_launches
     from ray_tpu_torch.ops import _build
 
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _build.load_extension().flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv,
-                                          float(scale), bool(causal))
+    ext = _build.load_extension()
+    if q.dtype == torch.bfloat16:
+        _check_tma_operands(q=q, k=k, v=v, do=do)
+        launch = ext.flash_bwd_dkv_sm90
+    else:
+        launch = ext.flash_bwd_dkv
+    launch(q, k, v, do, lse, delta, dk, dv, float(scale), bool(causal))
     flash_bwd_dkv_launches += 1
     return dk, dv
 

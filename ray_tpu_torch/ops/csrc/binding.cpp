@@ -38,13 +38,19 @@ extern "C" int ray_tpu_torch_flash_bwd_dq_sm90(
 
 extern "C" int ray_tpu_torch_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv, int dtype,
+    const float* lse, const float* delta, void* dk, void* dv,
+    int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
+    const int64_t* strides, float scale, int causal, void* stream);
+
+extern "C" int ray_tpu_torch_flash_bwd_dkv_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv,
     int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
     const int64_t* strides, float scale, int causal, void* stream);
 
 extern "C" const void* ray_tpu_torch_flash_fwd_sm90_kernel(int head_dim);
 extern "C" const void* ray_tpu_torch_flash_bwd_dq_sm90_kernel(int head_dim);
-extern "C" const void* ray_tpu_torch_flash_bwd_dkv_kernel(int head_dim);
+extern "C" const void* ray_tpu_torch_flash_bwd_dkv_sm90_kernel(int head_dim);
 
 // [batch, sequence, head] strides of each tensor, in order
 static std::vector<int64_t> bsh_strides(std::initializer_list<at::Tensor> ts) {
@@ -136,11 +142,24 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v
   const int rc = ray_tpu_torch_flash_bwd_dkv(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(), dv.data_ptr(),
-      q.scalar_type() == at::kBFloat16 ? 1 : 0,
       q.size(0), q.size(1), k.size(1), q.size(2), k.size(2), q.size(3),
       st.data(), static_cast<float>(scale), causal ? 1 : 0,
       c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+void flash_bwd_dkv_sm90(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                        const at::Tensor& dout, const at::Tensor& lse, const at::Tensor& delta,
+                        at::Tensor& dk, at::Tensor& dv, double scale, bool causal) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const auto st = bsh_strides({q, k, v, dout, dk, dv});
+  const int rc = ray_tpu_torch_flash_bwd_dkv_sm90(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(), dv.data_ptr(),
+      q.size(0), q.size(1), k.size(1), q.size(2), k.size(2), q.size(3),
+      st.data(), static_cast<float>(scale), causal ? 1 : 0,
+      c10::cuda::getCurrentCUDAStream().stream());
+  check_rc(rc, {"q", "k", "v", "do"});
 }
 
 // Registers per thread at launch, static and dynamic shared memory and
@@ -150,7 +169,7 @@ std::map<std::string, int64_t> kernel_attrs(const std::string& name, int64_t hea
   const void* kernel = nullptr;
   if (name == "flash_fwd") kernel = ray_tpu_torch_flash_fwd_sm90_kernel(head_dim);
   else if (name == "flash_bwd_dq") kernel = ray_tpu_torch_flash_bwd_dq_sm90_kernel(head_dim);
-  else if (name == "flash_bwd_dkv") kernel = ray_tpu_torch_flash_bwd_dkv_kernel(head_dim);
+  else if (name == "flash_bwd_dkv") kernel = ray_tpu_torch_flash_bwd_dkv_sm90_kernel(head_dim);
   TORCH_CHECK(kernel != nullptr, "no kernel ", name, " for head_dim ", head_dim);
   cudaFuncAttributes fa;
   C10_CUDA_CHECK(cudaFuncGetAttributes(&fa, kernel));
@@ -167,6 +186,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_bwd_dq", &flash_bwd_dq, "FlashAttention-2 backward, dQ pass, fp32 (Hopper)");
   m.def("flash_bwd_dq_sm90", &flash_bwd_dq_sm90,
         "FlashAttention-2 backward, dQ pass, bf16 on tensor cores (wgmma + TMA, sm_90a)");
-  m.def("flash_bwd_dkv", &flash_bwd_dkv, "FlashAttention-2 backward, dK/dV pass (Hopper)");
+  m.def("flash_bwd_dkv", &flash_bwd_dkv, "FlashAttention-2 backward, dK/dV pass, fp32 (Hopper)");
+  m.def("flash_bwd_dkv_sm90", &flash_bwd_dkv_sm90,
+        "FlashAttention-2 backward, dK/dV pass, bf16 on tensor cores (wgmma + TMA, sm_90a)");
   m.def("kernel_attrs", &kernel_attrs, "registers, shared memory and spill bytes of a kernel");
 }

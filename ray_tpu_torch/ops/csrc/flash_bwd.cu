@@ -1,8 +1,8 @@
 // FlashAttention-2 backward for Hopper (sm_90a), hand-written CUDA C++ on
-// the CUDA cores: two kernels, a dQ pass and a dK/dV pass. The dK/dV pass
-// serves fp32 and bf16 inputs; the dQ pass here serves fp32 inputs only,
-// bf16 ones go to the tensor-core dQ kernel of flash_bwd_dq_sm90.cu
-// (tensor cores have no fp32 mode, and TF32 keeps ~3 digits).
+// the CUDA cores, for fp32 inputs: two kernels, a dQ pass and a dK/dV
+// pass. bf16 inputs go to the tensor-core kernels of flash_bwd_dq_sm90.cu
+// and flash_bwd_dkv_sm90.cu (tensor cores have no fp32 mode, and TF32
+// keeps ~3 digits, short of the fp32 checks).
 //
 // Replaces ray_tpu/ops/attention.py::_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (the Pallas TPU kernels called from
@@ -10,14 +10,10 @@
 // row term Delta = rowsum(dO * O) (both fp32, [B, H, Sq]):
 //   P  = exp(q*scale K^T - LSE)       where the mask keeps (q, k), else 0
 //   dS = P * (dO V^T - Delta)
-//   dQ = scale * dS K                  (dQ pass; dQ in q's dtype)
-//   dV = P^T dO,  dK = dS^T (q*scale)  (dK/dV pass; in k's and v's dtype)
+//   dQ = scale * dS K                  (dQ pass)
+//   dV = P^T dO,  dK = dS^T (q*scale)  (dK/dV pass)
 // with the causal mask top-left aligned (key index <= query index, also
 // when Sq != Sk), keys >= Sk and queries >= Sq masked inside the kernel.
-// P and dS stay fp32 here also for bf16 inputs, where the plain version
-// _flash_bwd_reference rounds them to bf16 before their products (as the
-// tensor-core dQ kernel must round dS); the bf16 checks' tolerance, twice
-// the plain version's distance from fp32 plus 1e-4, covers the difference.
 //
 // Layout: q, dO [B, Sq, H, D] and k, v [B, Sk, Hkv, D] are read through
 // their batch, sequence and head strides (the last dim contiguous), and
@@ -31,12 +27,10 @@
 // What bounds it on an H100: at the training shape (B=8, S=2048, 32 heads,
 // D=128, causal) the dQ pass does 6*D and the dK/dV pass 8*D operations per
 // (q, k) pair the mask keeps: 600-700 operations per byte they must move,
-// above the card's ~295, so both are bound by arithmetic. These kernels
-// do that arithmetic in fp32 on the CUDA cores (67 TFLOP/s), also for bf16
-// dK/dV, not on the tensor cores (989 TFLOP/s bf16); a wgmma/TMA dK/dV is
-// a later step. What the design does about the
+// above the card's ~295, so both are bound by arithmetic, here the fp32
+// CUDA cores' 67 TFLOP/s. What the design does about the
 // arithmetic it has: each CTA keeps its own tile (q and dO rows for dQ; K
-// and V rows for dK/dV) in shared memory in fp32 for its whole loop and
+// and V rows for dK/dV) in shared memory for its whole loop and
 // streams the other side through in 32-row tiles; each of 256 threads holds
 // a 4x2 register tile of the scores and of dO V^T, and a 4x(D/16) register
 // tile of each output, so every shared-memory read feeds several FMAs; rows
@@ -45,7 +39,6 @@
 // scheduled first.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -77,23 +70,18 @@ struct FlashBwdArgs {
   int causal;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 __device__ __forceinline__ bool kept(int qi, int ki, int sq, int sk, int causal) {
   return qi < sq && ki < sk && (!causal || qi >= ki);
 }
 
-// rows [r0, r0 + R) of one head of x into fp32 smem rows of pitch D + 1,
-// times mul; rows at or past n are zero
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_rows(float* dst, const T* x, int64_t row_stride,
+// rows [r0, r0 + R) of one head of x into smem rows of pitch D + 1, times
+// mul; rows at or past n are zero
+template <int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* x, int64_t row_stride,
                                           int r0, int n, float mul) {
   for (int idx = threadIdx.x; idx < R * D; idx += NT) {
     const int r = idx / D, c = idx % D, ri = r0 + r;
-    dst[r * (D + 1) + c] = ri < n ? to_f32(x[ri * row_stride + c]) * mul : 0.f;
+    dst[r * (D + 1) + c] = ri < n ? x[ri * row_stride + c] * mul : 0.f;
   }
 }
 
@@ -102,11 +90,10 @@ constexpr int dq_smem_floats() {
   return 2 * DQ_BM * (D + 1) + 2 * DQ_BN * (D + 1) + DQ_BM * (DQ_BN + 1);
 }
 
-// dQ pass (fp32): one CTA per (64-row query tile, query head, batch); loops
+// dQ pass: one CTA per (64-row query tile, query head, batch); loops
 // over the key tiles up to the diagonal.
 template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
-  using T = float;
   extern __shared__ float smem[];
   float* qs = smem;                     // [BM][D+1], q * scale
   float* dos = qs + DQ_BM * (D + 1);    // [BM][D+1], dO
@@ -121,14 +108,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.group;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_st.b + h * a.q_st.h;
-  const T* dop = static_cast<const T*>(a.dout) + b * a.do_st.b + h * a.do_st.h;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_st.b + hk * a.k_st.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_st.b + hk * a.v_st.h;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_st.b + h * a.q_st.h;
+  const float* dop = static_cast<const float*>(a.dout) + b * a.do_st.b + h * a.do_st.h;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_st.b + hk * a.k_st.h;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_st.b + hk * a.v_st.h;
   const int64_t row0 = (static_cast<int64_t>(b) * a.h + h) * a.sq;
 
-  load_rows<T, D, DQ_BM>(qs, qp, a.q_st.s, q0, a.sq, a.scale);
-  load_rows<T, D, DQ_BM>(dos, dop, a.do_st.s, q0, a.sq, 1.f);
+  load_rows<D, DQ_BM>(qs, qp, a.q_st.s, q0, a.sq, a.scale);
+  load_rows<D, DQ_BM>(dos, dop, a.do_st.s, q0, a.sq, 1.f);
 
   float lse[4], delta[4], acc[4][DJ];
 #pragma unroll
@@ -145,8 +132,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * DQ_BN;
     __syncthreads();  // the previous tile's ks/vs/dss are no longer read
-    load_rows<T, D, DQ_BN>(ks, kp, a.k_st.s, k0, a.sk, 1.f);
-    load_rows<T, D, DQ_BN>(vs, vp, a.v_st.s, k0, a.sk, 1.f);
+    load_rows<D, DQ_BN>(ks, kp, a.k_st.s, k0, a.sk, 1.f);
+    load_rows<D, DQ_BN>(vs, vp, a.v_st.s, k0, a.sk, 1.f);
     __syncthreads();
 
     float s[4][2], dp[4][2];
@@ -202,9 +189,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi < a.sq) {
-      T* out = static_cast<T*>(a.dq) + b * a.dq_st.b + h * a.dq_st.h + qi * a.dq_st.s;
+      float* out = static_cast<float*>(a.dq) + b * a.dq_st.b + h * a.dq_st.h + qi * a.dq_st.s;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) store(out + tx + 16 * j, acc[i][j] * a.scale);
+      for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = acc[i][j] * a.scale;
     }
   }
 }
@@ -217,7 +204,7 @@ constexpr int dkv_smem_floats() {
 // dK/dV pass: one CTA per (64-row key tile, KV head, batch); loops over the
 // KV head's group of query heads and, for each, over the query tiles from
 // the diagonal on. A key tile that no query sees is written as zeros.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(FlashBwdArgs a) {
   extern __shared__ float smem[];
   float* ks = smem;                        // [BK][D+1]
@@ -234,10 +221,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(FlashBwdArgs a) {
   const int k0 = blockIdx.x * DKV_BK;  // causal: the first key tiles see the most queries
   const int hk = blockIdx.y, b = blockIdx.z;
 
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_st.b + hk * a.k_st.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_st.b + hk * a.v_st.h;
-  load_rows<T, D, DKV_BK>(ks, kp, a.k_st.s, k0, a.sk, 1.f);
-  load_rows<T, D, DKV_BK>(vs, vp, a.v_st.s, k0, a.sk, 1.f);
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_st.b + hk * a.k_st.h;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_st.b + hk * a.v_st.h;
+  load_rows<D, DKV_BK>(ks, kp, a.k_st.s, k0, a.sk, 1.f);
+  load_rows<D, DKV_BK>(vs, vp, a.v_st.s, k0, a.sk, 1.f);
 
   float dk[4][DJ], dv[4][DJ];
 #pragma unroll
@@ -250,13 +237,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(FlashBwdArgs a) {
   const int q_start = a.causal ? k0 : 0;
   for (int g = 0; g < a.group; ++g) {
     const int h = hk * a.group + g;
-    const T* qp = static_cast<const T*>(a.q) + b * a.q_st.b + h * a.q_st.h;
-    const T* dop = static_cast<const T*>(a.dout) + b * a.do_st.b + h * a.do_st.h;
+    const float* qp = static_cast<const float*>(a.q) + b * a.q_st.b + h * a.q_st.h;
+    const float* dop = static_cast<const float*>(a.dout) + b * a.do_st.b + h * a.do_st.h;
     const int64_t row0 = (static_cast<int64_t>(b) * a.h + h) * a.sq;
     for (int q0 = q_start; q0 < a.sq; q0 += DKV_BQ) {
       __syncthreads();  // the previous tile's qs/dos/buf/lse_s are no longer read
-      load_rows<T, D, DKV_BQ>(qs, qp, a.q_st.s, q0, a.sq, a.scale);
-      load_rows<T, D, DKV_BQ>(dos, dop, a.do_st.s, q0, a.sq, 1.f);
+      load_rows<D, DKV_BQ>(qs, qp, a.q_st.s, q0, a.sq, a.scale);
+      load_rows<D, DKV_BQ>(dos, dop, a.do_st.s, q0, a.sq, 1.f);
       if (tid < DKV_BQ) {
         const int qi = q0 + tid;
         lse_s[tid] = qi < a.sq ? a.lse[row0 + qi] : 0.f;
@@ -340,12 +327,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(FlashBwdArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int ki = k0 + ty + 16 * i;
     if (ki < a.sk) {
-      T* dkp = static_cast<T*>(a.dk) + b * a.dk_st.b + hk * a.dk_st.h + ki * a.dk_st.s;
-      T* dvp = static_cast<T*>(a.dv) + b * a.dv_st.b + hk * a.dv_st.h + ki * a.dv_st.s;
+      float* dkp = static_cast<float*>(a.dk) + b * a.dk_st.b + hk * a.dk_st.h + ki * a.dk_st.s;
+      float* dvp = static_cast<float*>(a.dv) + b * a.dv_st.b + hk * a.dv_st.h + ki * a.dv_st.s;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        store(dkp + tx + 16 * j, dk[i][j]);
-        store(dvp + tx + 16 * j, dv[i][j]);
+        dkp[tx + 16 * j] = dk[i][j];
+        dvp[tx + 16 * j] = dv[i][j];
       }
     }
   }
@@ -362,36 +349,25 @@ int launch_dq(const FlashBwdArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const FlashBwdArgs& a, int batch, cudaStream_t stream) {
   constexpr int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.sk + DKV_BK - 1) / DKV_BK, a.h / a.group, batch);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(a);
+  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dkv_d(const FlashBwdArgs& a, int batch, int d, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch_dkv<T, 32>(a, batch, stream);
-    case 64: return launch_dkv<T, 64>(a, batch, stream);
-    case 128: return launch_dkv<T, 128>(a, batch, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 Strides strides_at(const int64_t* st, int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
 
 }  // namespace
 
-// Plain C entry points. The dQ pass takes float32; dK/dV's dtype: 0 =
-// float32, 1 = bfloat16. `strides` holds [batch, sequence, head] strides
-// in elements for each tensor in argument order (dq pass: q, k, v, dout,
-// dq; dk/dv pass: q, k, v, dout, dk, dv). Each returns a cudaError_t
-// value: 0 when the launch was accepted.
+// Plain C entry points, for float32 inputs. `strides` holds [batch,
+// sequence, head] strides in elements for each tensor in argument order
+// (dq pass: q, k, v, dout, dq; dk/dv pass: q, k, v, dout, dk, dv). Each
+// returns a cudaError_t value: 0 when the launch was accepted.
 extern "C" int ray_tpu_torch_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,
@@ -415,7 +391,7 @@ extern "C" int ray_tpu_torch_flash_bwd_dq(
 
 extern "C" int ray_tpu_torch_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv, int dtype,
+    const float* lse, const float* delta, void* dk, void* dv,
     int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
     const int64_t* strides, float scale, int causal, void* stream) {
   FlashBwdArgs a{};
@@ -427,17 +403,10 @@ extern "C" int ray_tpu_torch_flash_bwd_dkv(
   a.sq = sq; a.sk = sk; a.h = heads; a.group = heads / kv_heads;
   a.scale = scale; a.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dkv_d<float>(a, batch, head_dim, s);
-  if (dtype == 1) return launch_dkv_d<__nv_bfloat16>(a, batch, head_dim, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the bf16 dK/dV kernel for head_dim (for cudaFuncGetAttributes), or null
-extern "C" const void* ray_tpu_torch_flash_bwd_dkv_kernel(int head_dim) {
   switch (head_dim) {
-    case 32: return reinterpret_cast<const void*>(flash_bwd_dkv_kernel<__nv_bfloat16, 32>);
-    case 64: return reinterpret_cast<const void*>(flash_bwd_dkv_kernel<__nv_bfloat16, 64>);
-    case 128: return reinterpret_cast<const void*>(flash_bwd_dkv_kernel<__nv_bfloat16, 128>);
-    default: return nullptr;
+    case 32: return launch_dkv<32>(a, batch, s);
+    case 64: return launch_dkv<64>(a, batch, s);
+    case 128: return launch_dkv<128>(a, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu): mbarriers, TMA loads of a
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu):
+// mbarriers, TMA loads of a
 // [B, S, H, D] bf16 tensor, wgmma shared-memory descriptors and the wgmma
 // instructions themselves, written as inline PTX. No PyTorch header is
 // included, so nvcc compiles each kernel file on its own.
@@ -11,11 +12,13 @@
 // box is ROWS rows of SWB*2 bytes, and every 8 rows form one swizzle atom
 // (1024 or 512 bytes), which wgmma reads with the matching layout type.
 //
-// - K-major operand (Q, dO as A; K, V as B of Q·Kᵀ and dO·Vᵀ): 8-row
-//   groups are SBO = 8*ROW_BYTES apart; a 16-column k slice starts 32
-//   bytes further along the row, or in the next box.
-// - MN-major operand (V of P·V and K of dS·K, read with the transpose
-//   bit): a 16-row k slice starts 16*ROW_BYTES further down; 8-row groups
+// - K-major operand (Q, dO as A and K, V as B of Q·Kᵀ and dO·Vᵀ; K, V as
+//   A and Q, dO as B of K·Qᵀ and V·dOᵀ): 8-row groups are SBO =
+//   8*ROW_BYTES apart; a 16-column k slice starts 32 bytes further along
+//   the row, or in the next box.
+// - MN-major operand (V of P·V, K of dS·K, dO of Pᵀ·dO and Q of dSᵀ·Q,
+//   read with the transpose bit): a 16-row k slice starts 16*ROW_BYTES
+//   further down; 8-row groups
 //   are SBO apart and the next SWB columns (the next box) LBO = one box
 //   apart.
 #pragma once
@@ -125,6 +128,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; bytes past
+// src_bytes (0 or 4) are zeros
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted in the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // all NBOX boxes of rows [row, row + ROWS) of one head of a [B, S, H, D] map

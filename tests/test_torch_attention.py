@@ -169,6 +169,8 @@ def test_flash_attention_grad_matches_jax(hkv):
     (1, 128, 128, 4, 2, 32, True),    # GQA: JAX expands, the port sums
     (1, 128, 128, 2, 2, 128, True),   # the tensor-core kernel's head dim
     (1, 200, 200, 4, 2, 128, True),   # Sq no multiple of 128, GQA
+    # Sk > Sq, ragged key tile: trailing keys see no query (dK/dV zero)
+    (1, 100, 300, 8, 2, 128, True),
 ])
 def test_flash_bwd_reference_matches_pallas_kernels(interpret_pallas, b, sq,
                                                     sk, h, hkv, d, causal):
