@@ -14,7 +14,12 @@ before it and read just after:
 - training: llama2_7b_lora (all 32 layers, bf16 params, B=8 x 2048,
   remat) through ray_tpu_torch.train.make_train_step, 2 warm-up and 5
   timed steps, after a two-layer fp32 step held against the same step
-  with attention through the plain versions.
+  with attention through the plain versions;
+- mixture-of-experts training: mixtral_8x7b at full width with its 32
+  layers cut to 4 (bf16 params, full fine-tune, B=8 x 2048, remat), 2
+  warm-up and 5 timed steps, after one MoE layer at Mixtral width held
+  against the same layer on the CPU (routing identical, outputs within
+  tolerance, with and without capacity drops).
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -56,18 +61,22 @@ ATTN_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     ("prefill_batch4", 4, 1500, 1500, 32, 8, 128, True, torch.bfloat16),
     # the training step's attention (llama2_7b_lora); timed
     ("train_step", 8, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
+    # the MoE training step's attention (mixtral_8x7b, GQA 32/8); timed
+    ("mixtral_train", 8, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
     ("ragged", 2, 100, 100, 4, 4, 64, False, torch.float32),
     ("sq_ne_sk", 2, 64, 192, 8, 4, 32, True, torch.float32),
     # their bf16 twins: tensor-core tiles at D=64 and D=32, ragged ends
     ("ragged_bf16", 2, 100, 100, 4, 4, 64, False, torch.bfloat16),
     ("sq_ne_sk_bf16", 2, 64, 192, 8, 4, 32, True, torch.bfloat16),
 ]
-TIMED_ATTN = {"prefill": 20, "train_step": 5}  # shape name: launches timed
+TIMED_ATTN = {"prefill": 20, "train_step": 5, "mixtral_train": 5}  # shape: launches timed
 
 
 BWD_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     # the training step's attention (llama2_7b_lora, bench.py:476-480); timed
     ("train_step", 8, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
+    # the MoE training step's attention (mixtral_8x7b, GQA 32/8); timed
+    ("mixtral_train", 8, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
     ("llama3_8b", 1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
     ("ragged", 2, 100, 100, 4, 4, 64, False, torch.float32),
     ("sq_ne_sk", 2, 64, 192, 8, 4, 32, True, torch.float32),
@@ -81,8 +90,18 @@ BWD_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     ("sk_gt_sq_bf16", 1, 100, 300, 8, 2, 128, True, torch.bfloat16),
 ]
 FP32_BWD_TOL = 1e-4  # kernel vs plain in fp32: summation order only
+TIMED_BWD = ("train_step", "mixtral_train")
+# bf16 shapes held by the per-element rule of ulp_rule_excess with floor
+# 2 * gap in place of max error <= 2 * gap + FP32_BWD_TOL: at the Mixtral
+# shape kernel and plain dV (summed over a GQA group of 4) land one ulp
+# apart (0.0625 at |dV| in [8, 16)) where 2 * gap is just under it. Every
+# other shape keeps the 2 * gap bound; each row reports both.
+ULP_RULE_BWD = ("mixtral_train",)
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+MOE_LAYERS = 4  # mixtral_8x7b's 32 layers cut to 4: 46.7 B params do not fit 80 GB
+MOE_TOKENS = 1024  # tokens of the one-layer card-vs-CPU check
+MOE_FP32_TOL = 1e-4  # card vs CPU in fp32 (TF32 off): summation order only
 
 
 def emit(obj) -> None:
@@ -114,17 +133,25 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 # device activity kinds for a profile's breakdown, by kernel-name substring
-# (flash_fwd_kernel_sm90 and flash_bwd_dq_kernel_sm90 match the first)
+# (flash_fwd_kernel_sm90 and flash_bwd_dq_kernel_sm90 match the first). The
+# third names PyTorch's indexing kernels: advanced indexing and index_copy
+# (the embedding and the MoE dispatch and combine), index_select and
+# scatter/gather (their backward, the routing's slots), index_put's
+# accumulating backward and its radix sort, top-k and its sort, and scans
 KINDS = (("flash attention kernels", ("flash_fwd_kernel", "flash_bwd_")),
-         ("cuBLAS matmuls", ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
+         ("cuBLAS matmuls", ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
+         ("index, top-k, sort and scan kernels",
+          ("index_elementwise_kernel", "indexSelect", "scatter_gather_elementwise",
+           "indexing_backward_kernel", "DeviceRadixSort", "topk", "TopK", "SortKV",
+           "kernel_scan_", "DeviceScan")))
 
 
 def profiled(fn, top: int = 8):
     """Run ``fn`` once under torch.profiler: wall ms, device-busy ms (the
     union of the device activity intervals, so nothing counts twice), the
-    summed device ms of each of KINDS (the rest as "other"), each flash
-    kernel's launches and ms, and the top device activities by summed
-    time."""
+    summed device ms of each of KINDS (the rest as "other"), the launches
+    and ms of each flash kernel and each indexing kernel, and the top
+    device activities by summed time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -148,11 +175,15 @@ def profiled(fn, top: int = 8):
         kind = next((k for k, subs in KINDS if any(s in name for s in subs)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     tops = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    flash = {name[:80]: {"count": n, "ms": us / 1e3} for name, (n, us) in by_name.items()
-             if any(s_ in name for s_ in KINDS[0][1])}
+
+    def members(subs, width):
+        return {name[:width]: {"count": n, "ms": us / 1e3}
+                for name, (n, us) in by_name.items() if any(s_ in name for s_ in subs)}
+
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "device_ms_by_kind": by_kind, "flash_kernels": flash,
+            "device_ms_by_kind": by_kind, "flash_kernels": members(KINDS[0][1], 80),
+            "index_kernels": members(KINDS[2][1], 120),
             "top_device_activities": [{"name": k[:80], "count": n, "ms": us / 1e3}
                                       for k, (n, us) in tops]}
 
@@ -188,6 +219,29 @@ def bwd_bound_ms(kernel, b, sq, sk, h, hkv, d, causal, dtype):
     flops = (6 if dq_pass else 8) * b * h * d * kept_pairs(sq, sk, causal)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def shape_label(b, sq, h, hkv, d, causal, dtype) -> str:
+    return (f"B={b} S={sq} H={h}/{hkv} D={d}{' causal' if causal else ''} "
+            f"{str(dtype).removeprefix('torch.').replace('bfloat16', 'bf16')}")
+
+
+def bf16_ulps(x):
+    """One bf16 ulp at each element's magnitude, 2^(floor(log2|x|) - 7);
+    0 where x is 0."""
+    _, e = torch.frexp(x.float())
+    ulp = torch.finfo(torch.bfloat16).eps * torch.exp2((e - 1).float())
+    return torch.where(x == 0, 0.0, ulp)
+
+
+def ulp_rule_excess(out, ref, floor: float, slack: float) -> float:
+    """max_i |out_i - ref_i| - (max(floor, ulp(|ref_i|)) + slack): at most
+    0 where every element is within ``floor`` of ``ref`` or, where its own
+    bf16 ulp is more, within one ulp (two roundings to bf16 of fp32 values
+    that differ by summation order alone can land one ulp apart), plus
+    ``slack``, fp32's summation-order tolerance."""
+    bound = bf16_ulps(ref).clamp_min(floor) + slack
+    return float(((out.float() - ref.float()).abs() - bound).max())
 
 
 def max_abs(x, y) -> float:
@@ -420,15 +474,23 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
                 row["dq_vs_fp32"] = max_abs(grads[0], plain32[0])
                 row["dkv_vs_fp32"] = [max_abs(x, y) for x, y in zip(grads[1:], plain32[1:])]
                 tols = [2 * gap + FP32_BWD_TOL for gap in gaps]
+                # the per-element rule (see ULP_RULE_BWD), reported at every
+                # bf16 shape and gating those it lists
+                row["ulp_rule_excess"] = [ulp_rule_excess(x, y, 2 * gap, FP32_BWD_TOL)
+                                          for x, y, gap in zip(grads, plain, gaps)]
                 del plain32
             errs = [max_abs(x, y) for x, y in zip(grads, plain)]
             row.update(max_abs_err=dict(zip(("dq", "dk", "dv"), errs)), tol=tols)
+            within = all(e <= t for e, t in zip(errs, tols))
+            if sname in ULP_RULE_BWD:
+                within = all(x <= 0 for x in row["ulp_rule_excess"])
+            row["within_tol"] = within
             finite = all(bool(torch.isfinite(g).all()) for g in grads)
             # top-left causal mask: key j is seen by queries i >= j only
             unseen_zero = not (causal and sk > sq) or all(
                 not bool(g[:, sq:].any()) for g in grads[1:])
             row.update(finite=finite, unseen_keys_zero=unseen_zero)
-            if sname == "train_step":
+            if sname in TIMED_BWD:
                 scale, iters = d ** -0.5, 5
                 delta = A._flash_bwd_delta(o, do)
                 row["dq_ms"] = cuda_ms(lambda: A._flash_bwd_dq_cuda(
@@ -439,26 +501,34 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
                     q, k, v, o, lse, do, causal), 2)
                 row["library_ms"] = sdpa_bwd_ms(q, k, v, do, causal, iters)
                 row["card"] = smi
+                label = shape_label(b, sq, h, hkv, d, causal, dtype)
                 for name, line, src, ms, err in (
                         ("flash_bwd_dq", 164, "flash_bwd_dq_sm90.cu", row["dq_ms"], errs[0]),
                         ("flash_bwd_dkv", 199, "flash_bwd_dkv_sm90.cu", row["dkv_ms"],
                          max(errs[1:]))):
                     bound, by = bwd_bound_ms(name, b, sq, sk, h, hkv, d, causal, dtype)
                     row[f"{name}_bound_ms"] = bound
+                    row[f"{name}_share"] = bound / ms
+                    if sname != "train_step":  # a sub-row of the kernel's row
+                        kernels[name][f"{sname}_shape"] = {
+                            "max_abs_err": err, "ms": ms, "plain_ms": row["plain_ms"],
+                            "bound_ms": bound, "bound_by": by, "share": bound / ms,
+                            "library_ms": row["library_ms"], "shape": label}
+                        continue
                     kernels[name] = {
                         "name": name, "route": "cuda",
                         "source": f"ray_tpu_torch/ops/csrc/{src}",
                         "replaces": f"ray_tpu/ops/attention.py:{line}",
                         "max_abs_err": err, "ms": ms, "plain_ms": row["plain_ms"],
-                        "bound_ms": bound, "bound_by": by,
+                        "bound_ms": bound, "bound_by": by, "share": bound / ms,
                         "library_ms": row["library_ms"],
                         # one plain call and one SDPA backward each give
                         # all three grads: both rows carry their full time
                         "plain_and_library_cover": "dQ, dK and dV",
-                        "shape": "B=8 S=2048 H=32/32 D=128 causal bf16"}
+                        "shape": label}
                 del delta
             emit(row)
-            if not (all(e <= t for e, t in zip(errs, tols)) and finite and unseen_zero):
+            if not (within and finite and unseen_zero):
                 raise AssertionError(f"flash backward disagrees with its plain version at {row}")
             del q, k, v, do, o, lse, grads, plain
             torch.cuda.empty_cache()
@@ -601,6 +671,275 @@ def train_steps(smi) -> dict:
     return launches
 
 
+def moe_weights(cfg, gen, dtype):
+    """One MoE layer's weights on the card, normal / sqrt(fan_in)."""
+    h, m, e = cfg.hidden, cfg.mlp_hidden, cfg.num_experts
+
+    def draw(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device="cuda") / fan_in ** 0.5).to(dtype)
+
+    return {"router": draw((h, e), h), "wi_gate": draw((e, h, m), h),
+            "wi_up": draw((e, h, m), h), "wo_mlp": draw((e, m, h), m)}
+
+
+def moe_vs_cpu() -> None:
+    """One mixture-of-experts layer at Mixtral width (h 4096, m 14336, 8
+    experts, top-2) on MOE_TOKENS tokens, on the card and on the CPU from
+    the same tensors, in fp32 and bf16, at capacity factor 1.25 and 0.5
+    (which forces drops). Routing (gate_idx, slot, keep) must be
+    identical on both devices. fp32 outputs agree within MOE_FP32_TOL
+    (summation order, TF32 off). In bf16 both devices round at the same
+    points, so each output lies within the rounding of the fp32 result:
+    at most `gap`, the CPU's bf16-vs-fp32 gap on the same bf16-rounded
+    inputs. They are within 2 * gap of each other, plus MOE_FP32_TOL (the
+    rule flash_bwd_vs_plain holds the backward kernels to): a split of
+    one intermediate rounding (the expert outputs, the gate product, the
+    sum over k) can move an output element by more than its own ulp."""
+    from ray_tpu_torch.models import transformer as T
+
+    with phase("moe_vs_cpu"):
+        base = T.config("mixtral_8x7b")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        p32 = moe_weights(base, gen, torch.float32)
+        y32 = torch.randn((1, MOE_TOKENS, base.hidden), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            p = {k: v.to(dtype) for k, v in p32.items()}
+            y = y32.to(dtype)
+            p_cpu, y_cpu = {k: v.cpu() for k, v in p.items()}, y.cpu()
+            for cf in (1.25, 0.5):
+                cfg = T.config(base, dtype=dtype, capacity_factor=cf)
+                with torch.no_grad():
+                    out = T._moe_mlp(cfg, y, p).cpu()
+                    r = T.moe_routing(cfg, y[0], p["router"])
+                    t0 = time.perf_counter()
+                    ref = T._moe_mlp(cfg, y_cpu, p_cpu)
+                    cpu_s = time.perf_counter() - t0
+                    r_cpu = T.moe_routing(cfg, y_cpu[0], p_cpu["router"])
+                same = {f: bool(torch.equal(getattr(r, f).cpu(), getattr(r_cpu, f)))
+                        for f in ("gate_idx", "slot", "keep")}
+                err = max_abs(out, ref)
+                row = {"dtype": str(dtype), "capacity_factor": cf, "tokens": MOE_TOKENS,
+                       "capacity": r.capacity, "routing_identical": same,
+                       "dropped_share": float((~r_cpu.keep).float().mean()),
+                       "max_abs_err": err, "out_max_abs": float(ref.abs().max()),
+                       "cpu_s": cpu_s}
+                if dtype == torch.float32:
+                    row["tol"] = MOE_FP32_TOL
+                    within = err <= MOE_FP32_TOL
+                else:
+                    cfg32 = T.config(cfg, dtype=torch.float32)
+                    with torch.no_grad():
+                        ref32 = T._moe_mlp(cfg32, y_cpu.float(),
+                                           {k: v.float() for k, v in p_cpu.items()})
+                    row["cpu_bf16_vs_fp32"] = max_abs(ref, ref32)
+                    # not gated: the card's bf16 layer against the same fp32 result
+                    row["card_bf16_vs_fp32"] = max_abs(out, ref32)
+                    row["tol"] = 2 * row["cpu_bf16_vs_fp32"] + MOE_FP32_TOL
+                    within = err <= row["tol"]
+                row["within_tol"] = within
+                emit(row)
+                if not (all(same.values()) and within
+                        and bool(torch.isfinite(out).all())):
+                    raise AssertionError(f"MoE layer: card and CPU disagree: {row}")
+                if cf < 1 and row["dropped_share"] == 0:
+                    raise AssertionError(f"capacity factor {cf} dropped nothing: {row}")
+            del p, y, p_cpu, y_cpu
+        del p32, y32
+        torch.cuda.empty_cache()
+
+
+def active_params(cfg) -> int:
+    """Params a token's forward multiplies by: attention, the router, the
+    k of E experts it is routed to, and the unembedding (the embedding
+    is a lookup; norms are left out)."""
+    h, m, e, k = cfg.hidden, cfg.mlp_hidden, cfg.num_experts, cfg.experts_per_token
+    attn = h * cfg.heads * cfg.hd + 2 * h * cfg.kv_heads * cfg.hd + cfg.heads * cfg.hd * h
+    return cfg.layers * (attn + h * e + k * 3 * h * m) + h * cfg.vocab_size
+
+
+@torch.no_grad()
+def expert_load(cfg, params, tokens):
+    """Routing of ``tokens`` at ``params``, layer by layer, through the
+    model's own halves of a block: per layer the tokens routed to each
+    expert (all k choices), those kept, and the dropped share. Also
+    returns layer 0's MLP input (for moe_layer_times)."""
+    from ray_tpu_torch.models import transformer as T
+
+    x = params["embed"].to(cfg.dtype)[tokens]
+    pos = torch.arange(tokens.shape[1], device="cuda")
+    attn, rows, y0 = T._default_attn(cfg), [], None
+    for i in range(cfg.layers):
+        lp, lo = T._layer(params, i)
+        x = T._attention(cfg, x, lp, lo, pos, attn)
+        y = T._rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
+        y0 = y if i == 0 else y0
+        r = T.moe_routing(cfg, y.reshape(-1, cfg.hidden), lp["router"])
+        idx = r.gate_idx.T.reshape(-1)
+        rows.append({"layer": i, "capacity": r.capacity,
+                     "routed": torch.bincount(idx, minlength=cfg.num_experts).tolist(),
+                     "kept": torch.bincount(idx[r.keep], minlength=cfg.num_experts).tolist(),
+                     "dropped_share": float((~r.keep).float().mean())})
+        x = T._mlp(cfg, x, lp, lo)
+    return rows, y0
+
+
+def moe_layer_times(cfg, params, y) -> dict:
+    """ms of one MoE layer's parts at the step's shape, layer 0's weights
+    and MLP input, by CUDA events: routing, the expert FFN (the model's
+    ``_expert_ffn`` on a full [E, C, h] buffer), the whole ``_moe_mlp``
+    forward (its rest is the dispatch and combine gathers), and forward
+    plus backward of ``_moe_mlp``, of the expert FFN alone and of a
+    block's attention half."""
+    from ray_tpu_torch.models import transformer as T
+
+    lp, _ = T._layer(params, 0)
+    t = y.shape[0] * y.shape[1]
+    x = y.reshape(t, cfg.hidden)
+    cap = T.moe_capacity(cfg, t)
+    rows = torch.arange(cfg.num_experts * cap, device="cuda") % t  # a full buffer
+    xe = x[rows].reshape(cfg.num_experts, cap, cfg.hidden)
+    w = {k: lp[k].detach().requires_grad_() for k in ("router", "wi_gate", "wi_up", "wo_mlp")}
+
+    def experts(xe):
+        return T._expert_ffn(xe, w)
+
+    def fwd_bwd(fn, *inputs):
+        inputs = [v.detach().requires_grad_() for v in inputs]
+        with torch.enable_grad():
+            out = fn(*inputs)
+            torch.autograd.grad(out, inputs + [v for v in w.values()],
+                                torch.ones_like(out), allow_unused=True)
+
+    pos = torch.arange(y.shape[1], device="cuda")
+    attn = T._default_attn(cfg)
+    with torch.no_grad():
+        out = {"routing_ms": cuda_ms(lambda: T.moe_routing(cfg, x, lp["router"]), 5),
+               "experts_fwd_ms": cuda_ms(lambda: experts(xe), 5),
+               "moe_mlp_fwd_ms": cuda_ms(lambda: T._moe_mlp(cfg, y, lp), 5)}
+    out["dispatch_combine_fwd_ms"] = (out["moe_mlp_fwd_ms"] - out["routing_ms"]
+                                      - out["experts_fwd_ms"])
+    out["moe_mlp_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(
+        lambda y_: T._moe_mlp(cfg, y_, w), y), 3)
+    out["experts_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(experts, xe), 3)
+    w.update({k: lp[k].detach().requires_grad_() for k in ("wq", "wk", "wv", "wo", "ln_attn")})
+    out["attention_half_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(
+        lambda y_: T._attention(cfg, y_, w, None, pos, attn), y), 3)
+    out.update(tokens=t, capacity=cap, clock="CUDA events")
+    return out
+
+
+class FirstGrads:
+    """The optimizer the MoE step is given: it updates as the wrapped
+    AdamW does, and on its first update (step 0) it records the L2 norm
+    of each expert's ``wi_gate`` gradient and of each layer's router
+    gradient, found among the per-layer leaves by their storage."""
+
+    def __init__(self, opt, params):
+        self.opt, self.norms = opt, None
+        self.where = {t.data_ptr(): (name, i) for name in ("wi_gate", "router")
+                      for i, t in enumerate(params["blocks"][name])}
+
+    def update_(self, params, grads, opt_state, grad_norm):
+        if self.norms is None:
+            self.norms = {}
+            for p, g in zip(params, grads):
+                name, i = self.where.get(p.data_ptr(), (None, None))
+                if name == "wi_gate":
+                    self.norms[(name, i)] = torch.linalg.vector_norm(
+                        g, dim=(1, 2), dtype=torch.float32).tolist()
+                elif name == "router":
+                    self.norms[(name, i)] = float(torch.linalg.vector_norm(
+                        g, dtype=torch.float32))
+        self.opt.update_(params, grads, opt_state, grad_norm)
+
+
+def moe_train_steps(smi) -> dict:
+    """The MoE training path: mixtral_8x7b at full width, layers cut to
+    MOE_LAYERS, bf16 params, full fine-tune, B=8 x 2048, remat, tokens
+    from seed 0 and the same batch each step, through
+    ray_tpu_torch.train.make_train_step. Returns one step's kernel
+    launches."""
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("moe_train_steps"):
+        cfg = T.config("mixtral_8x7b", layers=MOE_LAYERS, param_dtype=torch.bfloat16)
+        opt = S.default_optimizer(cfg)
+        t0 = time.perf_counter()
+        state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+            0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+        batch = {"tokens": tokens}
+        load, y0 = expert_load(cfg, state["params"], tokens)
+        emit({"expert_load_step0": load, "experts": cfg.num_experts,
+              "experts_per_token": cfg.experts_per_token,
+              "capacity_factor": cfg.capacity_factor, "card": smi})
+        recorder = FirstGrads(opt, state["params"])
+        run = S.make_train_step(cfg, recorder, device="cuda")
+        want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+                "flash_bwd_dkv": cfg.layers}  # forward + remat re-run, one backward
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            # ---- the main path: counts from 0, read right after ------
+            reset_launches(A)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            launches = read_launches(A)
+            # ---- end of the main path --------------------------------
+            losses.append(float(m["loss"]))
+            emit({"moe_train_step": i, "warmup": i < TRAIN_WARMUP, "ms": step_ms[-1],
+                  "loss": losses[-1], "grad_norm": float(m["grad_norm"]),
+                  "accuracy": float(m["accuracy"]), "launches": launches})
+            if launches != want:
+                raise AssertionError(f"MoE step {i} launched {launches}, expected {want}")
+        peak_bytes = torch.cuda.max_memory_allocated()
+        timed = sorted(step_ms[TRAIN_WARMUP:])
+        med = timed[len(timed) // 2]
+        tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
+        peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
+        n_active, t = active_params(cfg), TRAIN_BATCH * MAX_LEN
+        emit({"model": "mixtral_8x7b", "layers": cfg.layers, "reduced": "layers 32->4",
+              "batch": TRAIN_BATCH, "seq": MAX_LEN, "param_dtype": "bfloat16",
+              "remat": cfg.remat, "lora_rank": cfg.lora_rank,
+              "params": cfg.num_params(), "active_params": n_active, "init_s": init_s,
+              "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
+              "tokens_per_s": tok_s,
+              "mfu_6n_active": 6 * n_active * tok_s / peak, "peak_flops": peak,
+              # not the MFU: bench.py's 6·N with every expert counted
+              "six_n_all_over_peak": 6 * cfg.num_params() * tok_s / peak,
+              "peak_allocated_bytes": peak_bytes,
+              # what one fp32 one-hot [k·T, E, C] tensor of JAX's dispatch would hold
+              "one_hot_dispatch_bytes": 4 * cfg.experts_per_token * t * cfg.num_experts
+              * T.moe_capacity(cfg, t),
+              "losses": losses, "clock": "host, synchronized", "card": smi})
+        emit({"profile": "moe_train_step", "card": smi,
+              **profiled(lambda: run(state, batch), top=16)})
+        torch.cuda.synchronize()
+        norms = recorder.norms
+        dead = [f"layer {i} expert {e}" for i in range(cfg.layers)
+                for e, v in enumerate(norms[("wi_gate", i)]) if not v > 0]
+        dead += [f"layer {i} router" for i in range(cfg.layers) if not norms[("router", i)] > 0]
+        emit({"step0_grad_norms": {f"{n}/{i}": v for (n, i), v in sorted(norms.items())},
+              "experts_or_routers_without_grad": dead})
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"MoE losses not finite and falling: {losses}")
+        if dead or len(norms) != 2 * cfg.layers:
+            raise AssertionError(f"step 0: no gradient for {dead} ({len(norms)} leaves seen)")
+        emit({"moe_layer_times": moe_layer_times(cfg, state["params"], y0), "card": smi})
+        del state, run, recorder, y0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 # the instantiation each main path launches (bf16, D=128), by mangled-name
 # substring, and its design
 SASS_FUNCTIONS = {"flash_fwd": ("flash_fwd_kernel_sm90ILi128E", "sm90_wgmma_tma"),
@@ -705,19 +1044,20 @@ def main() -> int:
                         qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
                 row["bound_ms"], row["bound_by"] = attention_bound_ms(
                     b, sq, sk, h, hkv, d, causal, dtype)
+                row["share"] = row["bound_ms"] / row["ms"]
                 timed = {k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")}
+                                                "share", "library_ms")}
+                label = shape_label(b, sq, h, hkv, d, causal, dtype)
                 if sname == "prefill":  # the serving path's shape
                     kernels["flash_fwd"] = {
                         "name": "flash_fwd", "route": "cuda",
                         "source": "ray_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
                         "replaces": "ray_tpu/ops/attention.py:120",
                         "max_abs_err": err_o, "lse_max_abs_err": err_lse, **timed,
-                        "shape": "B=1 S=2048 H=32/8 D=128 causal bf16"}
-                else:  # the training path's shape
-                    kernels["flash_fwd"]["train_step_shape"] = {
-                        "max_abs_err": err_o, **timed,
-                        "shape": "B=8 S=2048 H=32/32 D=128 causal bf16"}
+                        "shape": label}
+                else:  # a training path's shape
+                    kernels["flash_fwd"][f"{sname}_shape"] = {
+                        "max_abs_err": err_o, **timed, "shape": label}
             emit(row)
             if not (err_o <= tol_o and err_lse <= tol_lse):
                 raise AssertionError(f"flash_fwd disagrees with its plain version at {row}")
@@ -732,10 +1072,15 @@ def main() -> int:
     flash_bwd_vs_plain(kernels, smi)
     train_full_width_check()
     train = train_steps(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_vs_cpu()
+    moe = moe_train_steps(smi)
     kernel_facts(kernels)
     for name, row in kernels.items():
         row["card"] = smi
-        row["launches_by_path"] = {"serving": serving[name], "train_step": train[name]}
+        row["launches_by_path"] = {"serving": serving[name], "train_step": train[name],
+                                   "moe_train_step": moe[name]}
         if name != "flash_fwd":  # the training step is their main path
             row["launches"] = train[name]
 

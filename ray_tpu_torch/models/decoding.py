@@ -79,6 +79,11 @@ def _block_cached(cfg: TransformerConfig, x, p, lora, positions,
                   k_cache, v_cache, kv_len_mask, prefill: bool = False):
     """One decoder block against cached K/V; writes this call's K/V into
     ``k_cache``/``v_cache`` ([B, max_len, kvH, D] views) in place."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "the cached (serving) path is dense-only: the JAX package's "
+            "_block_cached (ray_tpu/models/decoding.py:113-118) runs no "
+            "mixture of experts, so MoE serving is not a port item")
     b = x.shape[0]
     y = _rms_norm(x, p["ln_attn"], cfg.norm_eps)
     q, k, v = _qkv(cfg, y, p, lora, positions)

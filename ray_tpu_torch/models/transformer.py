@@ -1,5 +1,5 @@
 """Flagship model family: Llama-style decoder-only transformer (PyTorch
-port of ray_tpu/models/transformer.py, dense path).
+port of ray_tpu/models/transformer.py: dense and mixture-of-experts).
 
 Plain functions on tensors: a model is (config, params dict, forward).
 The params keep the JAX package's layout — layer leaves STACKED on a
@@ -10,15 +10,21 @@ may hand in a list of per-layer tensors in place of a stacked leaf, as
 the train step does (ray_tpu_torch/train/step.py). Under autograd, with
 ``cfg.remat``, each block runs under ``torch.utils.checkpoint``.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-row): mixture-of-experts and pipeline/sharded meshes.
+A mixture-of-experts MLP (``num_experts > 0``) routes as the JAX
+package's ``_moe_mlp`` does (top-k token choice, choice-major capacity
+drop) but dispatches by index: the kept tokens are gathered into an
+``[E, C, h]`` buffer and the expert outputs gathered back, where JAX
+multiplies by one-hot ``[k·T, E, C]`` tensors (see ``_moe_mlp``).
+
+Not in this slice (raises NotImplementedError naming its ROADMAP row):
+pipeline and sharded meshes, expert parallelism among them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,8 +35,9 @@ from ray_tpu_torch.ops.attention import flash_attention
 
 Params = Dict[str, Any]
 
-_MOE_TODO = ("mixture-of-experts is not ported yet "
-             "(ROADMAP.md Queue A, 'MoE, pipeline, ring attention, sharding')")
+_MESH_TODO = ("meshes and pipeline stages are not ported yet (ROADMAP.md "
+              "Queue A item 3: pipeline, ring attention, sharding and expert "
+              "parallelism, the next slice)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +60,11 @@ class TransformerConfig:
     remat: bool = True  # recompute each block in the backward (checkpoint)
     lora_rank: int = 0  # 0 = dense; >0 = LoRA adapters on q, v and gate
     lora_alpha: float = 16.0
-    num_experts: int = 0  # > 0 (mixture-of-experts) is not ported yet
+    # Mixture-of-experts (0 = dense MLP): top-k token choice with a
+    # capacity of capacity_factor * tokens * k / experts slots per expert
+    num_experts: int = 0
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
 
     @property
     def hd(self) -> int:
@@ -93,11 +104,13 @@ PRESETS: Dict[str, TransformerConfig] = {
     ),
     "mixtral_8x7b": TransformerConfig(
         vocab_size=32000, hidden=4096, mlp_hidden=14336, layers=32,
-        heads=32, kv_heads=8, max_seq=8192, rope_theta=1e6, num_experts=8,
+        heads=32, kv_heads=8, max_seq=8192, rope_theta=1e6,
+        num_experts=8, experts_per_token=2,
     ),
     "moe_debug": TransformerConfig(
         vocab_size=512, hidden=128, mlp_hidden=256, layers=2, heads=4,
         kv_heads=2, max_seq=128, remat=False, num_experts=4,
+        experts_per_token=2,
     ),
 }
 
@@ -114,29 +127,32 @@ def config(name_or_cfg, **overrides) -> TransformerConfig:
 def param_shapes(cfg: TransformerConfig) -> Params:
     """The params dict's structure with ``(shape, fan_in)`` leaves:
     ``fan_in`` is the normal init's scale, None for a norm weight (ones)
-    and 0 for a LoRA B (zeros). Layer leaves are STACKED on ``layers``."""
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE_TODO)
+    and 0 for a LoRA B (zeros). Layer leaves are STACKED on ``layers``;
+    a MoE config's expert leaves carry the experts next, ``[L, E, ...]``."""
     h, m, v, l = cfg.hidden, cfg.mlp_hidden, cfg.vocab_size, cfg.layers
     hd, nh, nkv = cfg.hd, cfg.heads, cfg.kv_heads
+    ex = (cfg.num_experts,) if cfg.num_experts else ()
+    blocks: Params = {
+        "wq": ((l, h, nh, hd), h),
+        "wk": ((l, h, nkv, hd), h),
+        "wv": ((l, h, nkv, hd), h),
+        "wo": ((l, nh, hd, h), nh * hd),
+        "ln_attn": ((l, h), None),
+        "ln_mlp": ((l, h), None),
+        "wi_gate": ((l, *ex, h, m), h),
+        "wi_up": ((l, *ex, h, m), h),
+        "wo_mlp": ((l, *ex, m, h), m),
+    }
+    if cfg.num_experts:
+        blocks["router"] = ((l, h, cfg.num_experts), h)
     shapes: Params = {
         "embed": ((v, h), h),  # scaled like the output projection
-        "blocks": {
-            "wq": ((l, h, nh, hd), h),
-            "wk": ((l, h, nkv, hd), h),
-            "wv": ((l, h, nkv, hd), h),
-            "wo": ((l, nh, hd, h), nh * hd),
-            "ln_attn": ((l, h), None),
-            "ln_mlp": ((l, h), None),
-            "wi_gate": ((l, h, m), h),
-            "wi_up": ((l, h, m), h),
-            "wo_mlp": ((l, m, h), m),
-        },
+        "blocks": blocks,
         "ln_f": ((h,), None),
     }
     if not cfg.tie_embeddings:
         shapes["unembed"] = ((h, v), h)
-    if cfg.lora_rank:
+    if cfg.lora_rank:  # with MoE too: JAX makes wi_a/wi_b, _moe_mlp never reads them
         r = cfg.lora_rank
         shapes["lora"] = {
             "wq_a": ((l, h, r), h), "wq_b": ((l, r, nh * hd), 0),
@@ -228,9 +244,91 @@ def _qkv(cfg: TransformerConfig, y, p, lora, positions):
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
+class MoeRouting(NamedTuple):
+    """How ``moe_routing`` places T tokens. Entries are choice-major:
+    entry ``p = choice * T + token``."""
+
+    gate_idx: torch.Tensor  # [T, k] int64: each token's experts, best first
+    gate_vals: torch.Tensor  # [T, k] fp32: their gates, renormalised over k
+    slot: torch.Tensor  # [k*T] int64: each entry's slot in its expert
+    keep: torch.Tensor  # [k*T] bool: slot < capacity (else dropped)
+    capacity: int  # slots per expert
+
+
+def moe_capacity(cfg: TransformerConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens, as the JAX package computes
+    it (a Python float product, truncated)."""
+    return max(4, int(cfg.capacity_factor * tokens * cfg.experts_per_token
+                      / cfg.num_experts))
+
+
+def moe_routing(cfg: TransformerConfig, x, router) -> MoeRouting:
+    """Top-k token-choice routing of ``x`` [T, h] by ``router`` [h, E]:
+    fp32 logits and softmax, the k best experts (sorted, as lax.top_k),
+    their gates renormalised. Slots are given in choice-major order, so
+    every token's first choice is placed before any second choice; an
+    entry past its expert's capacity is dropped, and the gates are not
+    renormalised after a drop."""
+    t = x.shape[0]
+    e, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    idx = gate_idx.T.reshape(k * t)
+    # an entry's slot: how many entries before it chose its expert, by a
+    # scan of the [E, k·T] one-hot along its inner dim
+    onehot = idx[None, :] == torch.arange(e, device=x.device)[:, None]
+    slot = onehot.cumsum(1).gather(0, idx[None, :])[0] - 1
+    cap = moe_capacity(cfg, t)
+    return MoeRouting(gate_idx, gate_vals, slot, slot < cap, cap)
+
+
+def _expert_ffn(xe, p):
+    """Each expert's SwiGLU on its rows: ``xe`` [E, C, h] in the compute
+    dtype, three batched products over E."""
+    gate = torch.bmm(xe, p["wi_gate"].to(xe.dtype))
+    up = torch.bmm(xe, p["wi_up"].to(xe.dtype))
+    return torch.bmm(F.silu(gate) * up, p["wo_mlp"].to(xe.dtype))
+
+
+def _moe_mlp(cfg: TransformerConfig, y, p):
+    """Top-k token-choice mixture of experts with capacity drop: the
+    function of the JAX package's ``_moe_mlp``. JAX builds one-hot
+    dispatch and combine tensors ``[k·T, E, C]`` and contracts them
+    (GSPMD partitions those einsums on the expert axis); here each kept
+    entry is copied into its (expert, slot) row of an ``[E, C, h]``
+    buffer, which receives at most one token per row, and the expert
+    outputs are copied back and scaled by the gate, cast to the
+    compute dtype first as JAX casts ``combine``. Empty slots stay zero;
+    a dropped entry adds 0.
+
+    Both moves are ``index_copy`` with distinct destinations, so their
+    backward is a gather (``index_select``): no scatter-add, and grads
+    are deterministic. Copies with no real destination (a dropped entry,
+    an empty slot) go to one spare last row, which is cut off."""
+    b, s, h = y.shape
+    t, e, k = b * s, cfg.num_experts, cfg.experts_per_token
+    x = y.reshape(t, h)
+    r = moe_routing(cfg, x, p["router"])
+    cap = r.capacity
+    # each entry's row in the [E*C] buffer, or the spare row if dropped
+    row = torch.where(r.keep, r.gate_idx.T.reshape(k * t) * cap + r.slot, e * cap)
+    xe = x.new_zeros(e * cap + 1, h).index_copy(0, row, x.repeat(k, 1))
+    out_e = _expert_ffn(xe[:-1].view(e, cap, h), p).view(e * cap, h)
+    # each buffer row's entry, or the spare entry if no entry landed there
+    entry = torch.full((e * cap + 1,), k * t, dtype=torch.long, device=x.device)
+    entry = entry.scatter(0, row, torch.arange(k * t, device=x.device))[:-1]
+    yk = out_e.new_zeros(k * t + 1, h).index_copy(0, entry, out_e)[:-1]
+    yk = yk * r.gate_vals.T.reshape(k * t).to(y.dtype)[:, None]
+    return yk.view(k, t, h).sum(0).view(b, s, h)
+
+
 def _mlp(cfg: TransformerConfig, x, p, lora):
-    """Second half of a block: x + SwiGLU(RMSNorm(x))."""
+    """Second half of a block: x + SwiGLU(RMSNorm(x)), or the mixture of
+    experts for a MoE config (which, as in JAX, reads no LoRA adapter)."""
     y = _rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    if cfg.num_experts:
+        return x + _moe_mlp(cfg, y, p)
     gate = torch.einsum("bsh,hm->bsm", y, p["wi_gate"].to(y.dtype))
     up = torch.einsum("bsh,hm->bsm", y, p["wi_up"].to(y.dtype))
     if lora is not None:
@@ -240,15 +338,19 @@ def _mlp(cfg: TransformerConfig, x, p, lora):
     return x + torch.einsum("bsm,mh->bsh", act, p["wo_mlp"].to(act.dtype))
 
 
+def _attention(cfg: TransformerConfig, x, p, lora, positions, attn_fn):
+    """First half of a block: x + attention(RMSNorm(x))."""
+    y = _rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, y, p, lora, positions)
+    attn = attn_fn(q, k, v)
+    return x + torch.einsum("bsnd,ndh->bsh", attn, p["wo"].to(attn.dtype))
+
+
 def _block(cfg: TransformerConfig, x, layer_params, lora_params, positions,
            attn_fn):
     """One decoder block. x [B,S,H_emb] in compute dtype."""
-    p = layer_params
-    y = _rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, y, p, lora_params, positions)
-    attn = attn_fn(q, k, v)
-    x = x + torch.einsum("bsnd,ndh->bsh", attn, p["wo"].to(attn.dtype))
-    return _mlp(cfg, x, p, lora_params)
+    x = _attention(cfg, x, layer_params, lora_params, positions, attn_fn)
+    return _mlp(cfg, x, layer_params, lora_params)
 
 
 def _default_attn(cfg: TransformerConfig):
@@ -276,12 +378,8 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
 
     ``attn_fn(q,k,v)->o`` overrides attention. ``mesh`` (pipeline or
     sharded layer stacks) is not ported yet and raises."""
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE_TODO)
     if mesh is not None or num_microbatches is not None:
-        raise NotImplementedError(
-            "meshes and pipeline stages are not ported yet (ROADMAP.md "
-            "Queue A, 'MoE, pipeline, ring attention, sharding')")
+        raise NotImplementedError(_MESH_TODO)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     attn_fn = attn_fn or _default_attn(cfg)

@@ -32,7 +32,7 @@ ported yet and raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -47,8 +47,8 @@ _STACKED = ("blocks", "lora")  # top-level keys whose leaves are [layers, ...]
 # the JAX package's fixed AdamW and clip settings (ray_tpu/train/step.py:49-51)
 B1, B2, EPS, MAX_NORM = 0.9, 0.95, 1e-8, 1.0
 _MESH_TODO = ("sharded, pipelined and microbatched train steps are not "
-              "ported yet (ROADMAP.md Queue A item 3, 'MoE, pipeline, ring "
-              "attention, sharding')")
+              "ported yet (ROADMAP.md Queue A item 3: pipeline, ring "
+              "attention, sharding and expert parallelism, the next slice)")
 
 
 def _per_layer(tree: Params, leaf=None, stacked: bool = False) -> Params:
@@ -76,6 +76,17 @@ def _flatten(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def _paths(tree, prefix: str = "") -> List[str]:
+    """The names of ``_flatten(tree)``'s tensors, in its order, as
+    ``key/key[layer]``."""
+    if isinstance(tree, dict):
+        return [n for k, v in sorted(tree.items())
+                for n in _paths(v, f"{prefix}/{k}" if prefix else k)]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in _paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
 def _units(tree: Params) -> List[torch.Tensor]:
     """The tensors the optimizer updates in place: each leaf, a stacked
     leaf as its per-layer views."""
@@ -93,9 +104,18 @@ def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None):
         t.requires_grad_()
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, tree, batch, attn_fn=attn_fn)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    # LoRA's wi_a/wi_b are never read under MoE (as in JAX): they get the
+    # zero grad jax.value_and_grad gives them. Any other unread leaf is a
+    # fault (an adapter or weight that came unwired).
+    unread = ("lora/wi_a[", "lora/wi_b[") if cfg.num_experts else ()
+    for i, name in enumerate(_paths(tree)):
+        if grads[i] is None:
+            if not name.startswith(unread):
+                raise ValueError(f"params leaf {name} is not read by the loss")
+            grads[i] = torch.zeros_like(leaves[i])
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return metrics["loss"], metrics, tree, list(grads)
+    return metrics["loss"], metrics, tree, grads
 
 
 def value_and_grad(cfg: TransformerConfig, params: Params, batch,
@@ -139,29 +159,53 @@ class AdamW:
                 opt_state: Dict[str, Any], grad_norm: torch.Tensor) -> None:
         """One step in place: ``params``, ``grads`` are the trainable leaves
         (``_units`` order, as are the moments); ``grad_norm`` is the global
-        norm of ``grads``. No host sync: the clip selects on the device."""
+        norm of ``grads``. No host sync: the clip selects on the device.
+        The update runs over groups of at most ``_CHUNK`` elements, so its
+        temporaries (three of a group's size) stay small beside the
+        moments when every leaf trains."""
         mu, nu = _units(opt_state["mu"]), _units(opt_state["nu"])
         # optax: select(norm < max, g, g / norm * max)
         trigger = grad_norm < MAX_NORM
-        g = torch._foreach_div(grads, torch.where(trigger, 1.0, grad_norm))
-        torch._foreach_mul_(g, torch.where(trigger, 1.0, MAX_NORM))
+        clip = (torch.where(trigger, 1.0, grad_norm),
+                torch.where(trigger, 1.0, MAX_NORM))
         count = opt_state["count"]
         count.add_(1)
         c = count.float()
-        bc1, bc2 = 1 - B1 ** c, 1 - B2 ** c
+        bc = (1 - B1 ** c, 1 - B2 ** c)
+        for part in _groups(params, _CHUNK):
+            self._update_group(params[part], grads[part], mu[part], nu[part], clip, bc)
+
+    def _update_group(self, params, grads, mu, nu, clip, bc) -> None:
+        g = torch._foreach_div(grads, clip[0])
+        torch._foreach_mul_(g, clip[1])
         torch._foreach_mul_(mu, B1)
         torch._foreach_add_(mu, g, alpha=1 - B1)
         torch._foreach_mul_(g, g)
         torch._foreach_mul_(nu, B2)
         torch._foreach_add_(nu, g, alpha=1 - B2)
-        den = torch._foreach_div(nu, bc2)
+        den = torch._foreach_div(nu, bc[1])
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, EPS)
-        upd = torch._foreach_div(mu, bc1)
+        upd = torch._foreach_div(mu, bc[0])
         torch._foreach_div_(upd, den)
         torch._foreach_add_(upd, params, alpha=self.weight_decay)
         torch._foreach_mul_(upd, -self.lr)
         torch._foreach_add_(params, upd)
+
+
+_CHUNK = 1 << 28  # elements of one optimizer group (0.5 GB in bf16)
+
+
+def _groups(tensors: List[torch.Tensor], limit: int) -> Iterator[slice]:
+    """Slices of ``tensors`` in consecutive groups of at most ``limit``
+    elements (a larger tensor makes a group of its own)."""
+    start, size = 0, 0
+    for i, t in enumerate(tensors):
+        if i > start and size + t.numel() > limit:
+            yield slice(start, i)
+            start, size = i, 0
+        size += t.numel()
+    yield slice(start, len(tensors))
 
 
 def default_optimizer(cfg: TransformerConfig, lr: float = 3e-4,

@@ -6,6 +6,8 @@ numpy.random.default_rng. Tolerances: fp32 logits 1e-4 abs (summation
 order over a few layers); bf16 logits, see test_forward_bf16_matches_jax.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 from ray_tpu.models import transformer as JT
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.decoding import forward_cached, init_cache
 
 FP32_ATOL = 1e-4
 
@@ -122,7 +125,8 @@ def test_rope_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["debug", "tiny", "llama3_8b", "llama2_7b_lora"])
+@pytest.mark.parametrize("name", ["debug", "tiny", "llama3_8b", "llama2_7b_lora",
+                                  "moe_debug", "mixtral_8x7b"])
 def test_param_shapes_and_count_match_jax(name):
     jcfg, tcfg = JT.config(name), T.config(name)
     jshapes = jax.eval_shape(lambda: JT.init_params(jcfg, jax.random.key(0)))
@@ -161,10 +165,29 @@ def test_params_from_jax_bf16_and_shape_check():
         params_from_jax(np_params, tcfg, "cpu")
 
 
+@pytest.mark.parametrize("name", list(JT.PRESETS))
+def test_presets_match_jax(name):
+    """Every preset equals the JAX package's field for field (dtypes by
+    name)."""
+    jcfg, tcfg = JT.PRESETS[name], T.PRESETS[name]
+    assert set(T.PRESETS) == set(JT.PRESETS)
+    for f in dataclasses.fields(JT.TransformerConfig):
+        a, b = getattr(jcfg, f.name), getattr(tcfg, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            a, b = jnp.dtype(a).name, str(b).removeprefix("torch.")
+        assert a == b, f.name
+    assert [f.name for f in dataclasses.fields(T.TransformerConfig)] == [
+        f.name for f in dataclasses.fields(JT.TransformerConfig)]
+
+
 def test_unported_paths_raise():
-    cfg = T.config("moe_debug")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, torch.Generator(), "cpu")
+    moe = T.config("moe_debug", dtype=torch.float32)
+    params = T.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    cache = init_cache(moe, 1, 8, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    pos = torch.arange(4)[None, :]
+    with pytest.raises(NotImplementedError, match="dense-only"):
+        forward_cached(moe, params, toks, pos, cache, None, prefill=True)
     dense = T.config("debug", dtype=torch.float32)
     params = T.init_params(dense, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)

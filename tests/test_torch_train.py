@@ -32,8 +32,10 @@ from ray_tpu_torch.models.convert import state_from_jax
 ATOL = 2e-5
 LR = 3e-4
 STEPS = 3
-# name -> (preset, overrides): dense without remat, LoRA with remat and GQA
-CASES = {"dense": ("debug", {}), "lora": ("tiny", {"lora_rank": 8})}
+# name -> (preset, overrides): dense without remat, LoRA with remat and
+# GQA, and mixture-of-experts (moe_debug: 4 experts, top-2)
+CASES = {"dense": ("debug", {}), "lora": ("tiny", {"lora_rank": 8}),
+         "moe": ("moe_debug", {})}
 
 
 def _configs(case):
@@ -102,7 +104,7 @@ def _assert_params_close(out, ref, steps):
         assert noisy.mean() < 1e-3, (path, noisy.mean())
 
 
-@pytest.mark.parametrize("case", ["dense", "lora"])
+@pytest.mark.parametrize("case", ["dense", "lora", "moe"])
 def test_train_steps_match_jax(case):
     """STEPS steps from the same init: loss, accuracy and grad_norm each
     step, and the params after each step."""
@@ -128,7 +130,7 @@ def test_train_steps_match_jax(case):
             assert moved.flatten(1).any(1).all(), name
 
 
-@pytest.mark.parametrize("case", ["dense", "lora"])
+@pytest.mark.parametrize("case", ["dense", "lora", "moe"])
 def test_state_from_jax_continues_the_run(case):
     """Two JAX steps, the state converted, one more step in the port:
     the port's params equal JAX's after its third step."""
@@ -167,7 +169,9 @@ def test_adamw_matches_optax(clip):
     jparams = jax.tree.map(jnp.asarray, _unflat(params, shapes))
     jstate = jopt.init(jparams)
     topt = S.default_optimizer(tcfg, lr=LR)
-    tparams = _unflat({p: torch.from_numpy(v) for p, v in params.items()}, shapes)
+    # copies: jnp.asarray may alias the numpy buffers, and JAX reads them
+    # asynchronously while the port updates its params in place
+    tparams = _unflat({p: torch.tensor(v) for p, v in params.items()}, shapes)
     tstate = topt.init(tparams)
     scale = 10.0 if clip else 1e-3
     for _ in range(3):
