@@ -19,7 +19,12 @@ before it and read just after:
   layers cut to 4 (bf16 params, full fine-tune, B=8 x 2048, remat), 2
   warm-up and 5 timed steps, after one MoE layer at Mixtral width held
   against the same layer on the CPU (routing identical, outputs within
-  tolerance, with and without capacity drops).
+  tolerance, with and without capacity drops);
+- sharded mixture-of-experts training: the same model, seed and batch
+  through a mesh of one rank (an NCCL world of one, MeshSpec() through
+  ray_tpu_torch.parallel), the data and expert axes' code with every
+  collective a copy: 2 warm-up and 3 timed steps, held against the
+  unsharded steps (step 0's loss bit-identical).
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -102,6 +107,7 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 MOE_LAYERS = 4  # mixtral_8x7b's 32 layers cut to 4: 46.7 B params do not fit 80 GB
 MOE_TOKENS = 1024  # tokens of the one-layer card-vs-CPU check
 MOE_FP32_TOL = 1e-4  # card vs CPU in fp32 (TF32 off): summation order only
+MESH_TIMED = 3  # timed steps of the sharded MoE step (after TRAIN_WARMUP)
 
 
 def emit(obj) -> None:
@@ -143,15 +149,18 @@ KINDS = (("flash attention kernels", ("flash_fwd_kernel", "flash_bwd_")),
          ("index, top-k, sort and scan kernels",
           ("index_elementwise_kernel", "indexSelect", "scatter_gather_elementwise",
            "indexing_backward_kernel", "DeviceRadixSort", "topk", "TopK", "SortKV",
-           "kernel_scan_", "DeviceScan")))
+           "kernel_scan_", "DeviceScan")),
+         # the sharded step's collectives (at one rank NCCL may copy with a
+         # memcpy, which falls in "other", or do nothing for an in-place call)
+         ("NCCL collectives", ("nccl", "Nccl")))
 
 
 def profiled(fn, top: int = 8):
     """Run ``fn`` once under torch.profiler: wall ms, device-busy ms (the
     union of the device activity intervals, so nothing counts twice), the
     summed device ms of each of KINDS (the rest as "other"), the launches
-    and ms of each flash kernel and each indexing kernel, and the top
-    device activities by summed time."""
+    and ms of each flash, indexing and NCCL kernel, and the top device
+    activities by summed time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -184,6 +193,7 @@ def profiled(fn, top: int = 8):
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "device_ms_by_kind": by_kind, "flash_kernels": members(KINDS[0][1], 80),
             "index_kernels": members(KINDS[2][1], 120),
+            "nccl_kernels": members(KINDS[3][1], 80),
             "top_device_activities": [{"name": k[:80], "count": n, "ms": us / 1e3}
                                       for k, (n, us) in tops]}
 
@@ -853,12 +863,12 @@ class FirstGrads:
         self.opt.update_(params, grads, opt_state, grad_norm)
 
 
-def moe_train_steps(smi) -> dict:
+def moe_train_steps(smi):
     """The MoE training path: mixtral_8x7b at full width, layers cut to
     MOE_LAYERS, bf16 params, full fine-tune, B=8 x 2048, remat, tokens
     from seed 0 and the same batch each step, through
     ray_tpu_torch.train.make_train_step. Returns one step's kernel
-    launches."""
+    launches and the run's numbers (for moe_mesh_train_steps)."""
     from ray_tpu_torch import train as S
     from ray_tpu_torch.models import transformer as T
     from ray_tpu_torch.ops import attention as A
@@ -883,7 +893,7 @@ def moe_train_steps(smi) -> dict:
                 "flash_bwd_dkv": cfg.layers}  # forward + remat re-run, one backward
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
-        losses, step_ms = [], []
+        losses, step_ms, metrics = [], [], []
         for i in range(TRAIN_WARMUP + TRAIN_TIMED):
             # ---- the main path: counts from 0, read right after ------
             reset_launches(A)
@@ -895,6 +905,7 @@ def moe_train_steps(smi) -> dict:
             launches = read_launches(A)
             # ---- end of the main path --------------------------------
             losses.append(float(m["loss"]))
+            metrics.append({k: float(v) for k, v in m.items()})
             emit({"moe_train_step": i, "warmup": i < TRAIN_WARMUP, "ms": step_ms[-1],
                   "loss": losses[-1], "grad_norm": float(m["grad_norm"]),
                   "accuracy": float(m["accuracy"]), "launches": launches})
@@ -906,13 +917,16 @@ def moe_train_steps(smi) -> dict:
         tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
         peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
         n_active, t = active_params(cfg), TRAIN_BATCH * MAX_LEN
+        summary = {"step_ms_median": med, "tokens_per_s": tok_s,
+                   "mfu_6n_active": 6 * n_active * tok_s / peak,
+                   "peak_allocated_bytes": peak_bytes, "metrics": metrics}
         emit({"model": "mixtral_8x7b", "layers": cfg.layers, "reduced": "layers 32->4",
               "batch": TRAIN_BATCH, "seq": MAX_LEN, "param_dtype": "bfloat16",
               "remat": cfg.remat, "lora_rank": cfg.lora_rank,
               "params": cfg.num_params(), "active_params": n_active, "init_s": init_s,
               "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
               "tokens_per_s": tok_s,
-              "mfu_6n_active": 6 * n_active * tok_s / peak, "peak_flops": peak,
+              "mfu_6n_active": summary["mfu_6n_active"], "peak_flops": peak,
               # not the MFU: bench.py's 6·N with every expert counted
               "six_n_all_over_peak": 6 * cfg.num_params() * tok_s / peak,
               "peak_allocated_bytes": peak_bytes,
@@ -937,6 +951,113 @@ def moe_train_steps(smi) -> dict:
         del state, run, recorder, y0
         gc.collect()
         torch.cuda.empty_cache()
+    return launches, summary
+
+
+def moe_mesh_train_steps(smi, unsharded) -> dict:
+    """The sharded MoE training path on a mesh of one rank: an NCCL world
+    of one (ray_tpu_torch.parallel.single_device_mesh on cuda, every axis
+    of MeshSpec() 1), the same model, seed and batch as moe_train_steps,
+    through init_state(cfg, opt, mesh) and make_train_step(cfg, opt, mesh):
+    the data and expert axes' code with each collective a copy. 2 warm-up,
+    MESH_TIMED timed and 1 profiled step. Held against ``unsharded``
+    (moe_train_steps' numbers): step 0's loss and accuracy bit-identical,
+    its grad_norm within 1e-5 relative, the losses of steps 1-2 within
+    1e-3. Returns one step's kernel launches."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import parallel as P
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("moe_mesh_train_steps"):
+        cfg = T.config("mixtral_8x7b", layers=MOE_LAYERS, param_dtype=torch.bfloat16)
+        opt = S.default_optimizer(cfg)
+        mesh = P.single_device_mesh("cuda")
+        state = run = None
+        try:
+            emit({"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                  "backend": dist.get_backend(), "world": dist.get_world_size()})
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"a cuda mesh on {dist.get_backend()}")
+            state = S.init_state(cfg, opt, mesh, seed=SEED)
+            run = S.make_train_step(cfg, opt, mesh)
+            tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+                0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+            batch = {"tokens": tokens}
+            want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+                    "flash_bwd_dkv": cfg.layers}  # forward + remat re-run, one backward
+            # the design's collectives a step (ray_tpu_torch/parallel/collectives.py):
+            # per MoE layer the tokens' gather in the forward and the remat
+            # re-run, its reduce-scatter in the backward, the combine's
+            # all-reduce twice and the input grad's once; then one all-reduce
+            # per grad tensor, the norm's and the metrics'
+            units = len(S.step._units(state["params"]))
+            want_coll = {"all_gather": 2 * cfg.layers, "reduce_scatter": cfg.layers,
+                         "all_reduce": 3 * cfg.layers + units + 2}
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            metrics, step_ms = [], []
+            for i in range(TRAIN_WARMUP + MESH_TIMED):
+                # ---- the main path: counts from 0, read right after ------
+                reset_launches(A)
+                P.reset_collectives()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = run(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                launches, coll = read_launches(A), P.read_collectives()
+                # ---- end of the main path --------------------------------
+                metrics.append({k: float(v) for k, v in m.items()})
+                emit({"moe_mesh_train_step": i, "warmup": i < TRAIN_WARMUP,
+                      "ms": step_ms[-1], **metrics[-1], "launches": launches,
+                      "collectives": coll})
+                if launches != want or coll != want_coll:
+                    raise AssertionError(f"mesh step {i} launched {launches} and issued "
+                                         f"{coll}, expected {want} and {want_coll}")
+            peak_bytes = torch.cuda.max_memory_allocated()
+            timed = sorted(step_ms[TRAIN_WARMUP:])
+            med = timed[len(timed) // 2]
+            tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
+            peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
+            ref = unsharded["metrics"]
+            cmp = {"step0_loss": [metrics[0]["loss"], ref[0]["loss"]],
+                   "step0_accuracy": [metrics[0]["accuracy"], ref[0]["accuracy"]],
+                   "step0_grad_norm": [metrics[0]["grad_norm"], ref[0]["grad_norm"]],
+                   "losses_1_2": [[m_["loss"] for m_ in metrics[1:3]],
+                                  [m_["loss"] for m_ in ref[1:3]]],
+                   "bit_identical_steps": sum(a == b for a, b in zip(metrics, ref)),
+                   "tol": {"grad_norm_rel": 1e-5, "loss_rel": 1e-3}}
+            emit({"model": "mixtral_8x7b", "layers": cfg.layers,
+                  "reduced": "layers 32->4", "mesh": "MeshSpec() on an NCCL world of one",
+                  "batch": TRAIN_BATCH, "seq": MAX_LEN, "param_dtype": "bfloat16",
+                  "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
+                  "tokens_per_s": tok_s,
+                  "mfu_6n_active": 6 * active_params(cfg) * tok_s / peak,
+                  "peak_allocated_bytes": peak_bytes,
+                  "unsharded": {k: unsharded[k] for k in (
+                      "step_ms_median", "tokens_per_s", "mfu_6n_active",
+                      "peak_allocated_bytes")},
+                  "against_unsharded": cmp, "clock": "host, synchronized", "card": smi})
+            ok = (cmp["step0_loss"][0] == cmp["step0_loss"][1]
+                  and cmp["step0_accuracy"][0] == cmp["step0_accuracy"][1]
+                  and abs(cmp["step0_grad_norm"][0] - cmp["step0_grad_norm"][1])
+                  <= 1e-5 * abs(cmp["step0_grad_norm"][1])
+                  and all(abs(a - b) <= 1e-3 * abs(b)
+                          for a, b in zip(*cmp["losses_1_2"]))
+                  and all(np.isfinite([m_["loss"] for m_ in metrics])))
+            if not ok:
+                raise AssertionError(f"mesh step and unsharded step disagree: {cmp}")
+            emit({"profile": "moe_mesh_train_step", "card": smi,
+                  **profiled(lambda: run(state, batch), top=16)})
+            torch.cuda.synchronize()
+        finally:
+            del state, run
+            dist.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
     return launches
 
 
@@ -1075,12 +1196,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_vs_cpu()
-    moe = moe_train_steps(smi)
+    moe, moe_numbers = moe_train_steps(smi)
+    moe_mesh = moe_mesh_train_steps(smi, moe_numbers)
     kernel_facts(kernels)
     for name, row in kernels.items():
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "train_step": train[name],
-                                   "moe_train_step": moe[name]}
+                                   "moe_train_step": moe[name],
+                                   "moe_mesh_train_step": moe_mesh[name]}
         if name != "flash_fwd":  # the training step is their main path
             row["launches"] = train[name]
 

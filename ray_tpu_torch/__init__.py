@@ -5,6 +5,11 @@ module and function names, imports nothing of it, and runs on an NVIDIA
 GPU. Every entry point takes an explicit ``device``; ``None`` means the
 card, and raises when there is none. The CPU is used only when a caller
 asks for it (``device="cpu"``), as the tests do.
+
+Subpackages: ``ops`` (the flash kernels), ``models`` (the transformer,
+decoding, continuous batching, weights from JAX), ``llm`` (the serving
+engines), ``train`` (the train step) and ``parallel`` (the device mesh,
+sharding rules and collectives of the sharded step).
 """
 
 from __future__ import annotations

@@ -16,8 +16,15 @@ drop) but dispatches by index: the kept tokens are gathered into an
 ``[E, C, h]`` buffer and the expert outputs gathered back, where JAX
 multiplies by one-hot ``[k·T, E, C]`` tensors (see ``_moe_mlp``).
 
-Not in this slice (raises NotImplementedError naming its ROADMAP row):
-pipeline and sharded meshes, expert parallelism among them.
+Under a mesh (a DeviceMesh from ray_tpu_torch.parallel.build_mesh) the
+model runs on this rank's rows of the batch and its shards of the
+params: the batch is cut over the data axes (replica, data), the expert
+leaves over ``expert``, as ``param_axes`` and the JAX package's rules
+place them. The MoE layer then routes over the data group's gathered
+tokens and sums its experts' outputs over the expert group, and the loss
+divides by the global mask sum (ray_tpu_torch/parallel/collectives.py).
+Other mesh axes above 1, and microbatches, raise NotImplementedError
+naming their ROADMAP row (``_MESH_TODO``).
 """
 
 from __future__ import annotations
@@ -28,16 +35,49 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import default_device
 from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.parallel.collectives import (
+    NO_MESH, MeshGroups, gather_rows, mesh_groups, sum_grads, sum_partials,
+)
+from ray_tpu_torch.parallel.mesh import mesh_axis_size
 
 Params = Dict[str, Any]
 
-_MESH_TODO = ("meshes and pipeline stages are not ported yet (ROADMAP.md "
-              "Queue A item 3: pipeline, ring attention, sharding and expert "
-              "parallelism, the next slice)")
+# mesh axes (above 1) and options the port does not take yet, by the
+# ROADMAP.md Queue A item that brings them
+_MESH_TODO = {
+    "sequence": "item 2 (ring attention and the sequence axis)",
+    "fsdp": "item 3 (FSDP and tensor parallelism)",
+    "tensor": "item 3 (FSDP and tensor parallelism)",
+    "stage": "item 4 (pipeline)",
+    "num_microbatches": "item 4 (pipeline)",
+}
+
+
+def check_mesh(mesh, num_microbatches: Optional[int] = None) -> MeshGroups:
+    """The groups the model's collectives run on under ``mesh`` (NO_MESH
+    for None), after checking that the port runs it: an axis of
+    ``_MESH_TODO`` above 1 (``mesh`` may be a DeviceMesh, a MeshSpec or a
+    sizes mapping for this check) or ``num_microbatches`` raises
+    NotImplementedError naming its ROADMAP item; a mesh that passes must
+    be a DeviceMesh."""
+    if num_microbatches is not None:
+        raise NotImplementedError(
+            "num_microbatches (a pipelined step) is not ported yet "
+            f"(ROADMAP.md Queue A {_MESH_TODO['num_microbatches']})")
+    for axis in ("fsdp", "stage", "sequence", "tensor"):
+        n = mesh_axis_size(mesh, axis)
+        if n > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis}={n} is not ported yet (ROADMAP.md Queue A "
+                f"{_MESH_TODO[axis]})")
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh: a DeviceMesh from build_mesh, not {type(mesh).__name__}")
+    return mesh_groups(mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +200,47 @@ def param_shapes(cfg: TransformerConfig) -> Params:
             "wi_a": ((l, h, r), h), "wi_b": ((l, r, m), 0),
         }
     return shapes
+
+
+def param_axes(cfg: TransformerConfig) -> Params:
+    """The params dict's structure with each leaf's logical axis names,
+    one per dim, as the JAX package names them: parallel.sharding maps
+    them onto a mesh (``spec_for``, ``shard_tree``)."""
+    block_axes: Params = {
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "ln_attn": ("layers", "norm"),
+        "ln_mlp": ("layers", "norm"),
+    }
+    if cfg.num_experts:
+        block_axes.update({
+            "router": ("layers", "embed", None),  # router stays replicated
+            "wi_gate": ("layers", "expert", "embed", "mlp"),
+            "wi_up": ("layers", "expert", "embed", "mlp"),
+            "wo_mlp": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        block_axes.update({
+            "wi_gate": ("layers", "embed", "mlp"),
+            "wi_up": ("layers", "embed", "mlp"),
+            "wo_mlp": ("layers", "mlp", "embed"),
+        })
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "blocks": block_axes,
+        "ln_f": ("norm",),
+    }
+    if not cfg.tie_embeddings:
+        axes["unembed"] = ("embed", "vocab")
+    if cfg.lora_rank:
+        axes["lora"] = {
+            "wq_a": ("layers", "embed", "lora_rank"), "wq_b": ("layers", "lora_rank", "heads"),
+            "wv_a": ("layers", "embed", "lora_rank"), "wv_b": ("layers", "lora_rank", "kv_heads"),
+            "wi_a": ("layers", "embed", "lora_rank"), "wi_b": ("layers", "lora_rank", "mlp"),
+        }
+    return axes
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -291,7 +372,7 @@ def _expert_ffn(xe, p):
     return torch.bmm(F.silu(gate) * up, p["wo_mlp"].to(xe.dtype))
 
 
-def _moe_mlp(cfg: TransformerConfig, y, p):
+def _moe_mlp(cfg: TransformerConfig, y, p, groups: MeshGroups = NO_MESH):
     """Top-k token-choice mixture of experts with capacity drop: the
     function of the JAX package's ``_moe_mlp``. JAX builds one-hot
     dispatch and combine tensors ``[k·T, E, C]`` and contracts them
@@ -305,30 +386,50 @@ def _moe_mlp(cfg: TransformerConfig, y, p):
     Both moves are ``index_copy`` with distinct destinations, so their
     backward is a gather (``index_select``): no scatter-add, and grads
     are deterministic. Copies with no real destination (a dropped entry,
-    an empty slot) go to one spare last row, which is cut off."""
+    an empty slot, an entry of another rank's expert) go to one spare
+    last row, which is cut off.
+
+    Under a mesh (``groups``), as the JAX package's sharded step computes
+    it: the data group's tokens are gathered, so routing, the capacity C
+    and the slot order come from the global batch; the rank's E/n local
+    experts (``p``'s expert leaves are its shard) run on their slots; the
+    expert outputs are summed over the expert group; the rank keeps its
+    own rows."""
     b, s, h = y.shape
-    t, e, k = b * s, cfg.num_experts, cfg.experts_per_token
-    x = y.reshape(t, h)
+    k = cfg.experts_per_token
+    x = gather_rows(y.reshape(b * s, h), groups.batch)
+    t = x.shape[0]
+    e = p["wi_gate"].shape[0]  # local experts
+    if e * groups.n_expert != cfg.num_experts:
+        raise ValueError(f"{e} experts on each of {groups.n_expert} ranks: "
+                         f"the config has {cfg.num_experts}")
     r = moe_routing(cfg, x, p["router"])
     cap = r.capacity
-    # each entry's row in the [E*C] buffer, or the spare row if dropped
-    row = torch.where(r.keep, r.gate_idx.T.reshape(k * t) * cap + r.slot, e * cap)
-    xe = x.new_zeros(e * cap + 1, h).index_copy(0, row, x.repeat(k, 1))
+    # each entry's row in the [E*C] buffer of the local experts, or the
+    # spare row if it was dropped or its expert is another rank's
+    local = r.gate_idx.T.reshape(k * t) - groups.expert_rank * e
+    mine = r.keep & (local >= 0) & (local < e)
+    row = torch.where(mine, local * cap + r.slot, e * cap)
+    xk = sum_grads(x, groups.expert).repeat(k, 1)
+    xe = x.new_zeros(e * cap + 1, h).index_copy(0, row, xk)
     out_e = _expert_ffn(xe[:-1].view(e, cap, h), p).view(e * cap, h)
     # each buffer row's entry, or the spare entry if no entry landed there
     entry = torch.full((e * cap + 1,), k * t, dtype=torch.long, device=x.device)
     entry = entry.scatter(0, row, torch.arange(k * t, device=x.device))[:-1]
     yk = out_e.new_zeros(k * t + 1, h).index_copy(0, entry, out_e)[:-1]
+    yk = sum_partials(yk, groups.expert)
     yk = yk * r.gate_vals.T.reshape(k * t).to(y.dtype)[:, None]
-    return yk.view(k, t, h).sum(0).view(b, s, h)
+    out = yk.view(k, t, h).sum(0)
+    first = groups.batch_rank * b * s
+    return out[first:first + b * s].view(b, s, h)
 
 
-def _mlp(cfg: TransformerConfig, x, p, lora):
+def _mlp(cfg: TransformerConfig, x, p, lora, groups: MeshGroups = NO_MESH):
     """Second half of a block: x + SwiGLU(RMSNorm(x)), or the mixture of
     experts for a MoE config (which, as in JAX, reads no LoRA adapter)."""
     y = _rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     if cfg.num_experts:
-        return x + _moe_mlp(cfg, y, p)
+        return x + _moe_mlp(cfg, y, p, groups)
     gate = torch.einsum("bsh,hm->bsm", y, p["wi_gate"].to(y.dtype))
     up = torch.einsum("bsh,hm->bsm", y, p["wi_up"].to(y.dtype))
     if lora is not None:
@@ -347,10 +448,10 @@ def _attention(cfg: TransformerConfig, x, p, lora, positions, attn_fn):
 
 
 def _block(cfg: TransformerConfig, x, layer_params, lora_params, positions,
-           attn_fn):
+           attn_fn, groups: MeshGroups = NO_MESH):
     """One decoder block. x [B,S,H_emb] in compute dtype."""
     x = _attention(cfg, x, layer_params, lora_params, positions, attn_fn)
-    return _mlp(cfg, x, layer_params, lora_params)
+    return _mlp(cfg, x, layer_params, lora_params, groups)
 
 
 def _default_attn(cfg: TransformerConfig):
@@ -376,10 +477,16 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
             num_microbatches: Optional[int] = None) -> torch.Tensor:
     """tokens [B,S] int → logits [B,S,V] (compute dtype).
 
-    ``attn_fn(q,k,v)->o`` overrides attention. ``mesh`` (pipeline or
-    sharded layer stacks) is not ported yet and raises."""
-    if mesh is not None or num_microbatches is not None:
-        raise NotImplementedError(_MESH_TODO)
+    ``attn_fn(q,k,v)->o`` overrides attention. Under ``mesh`` (a
+    DeviceMesh), ``tokens`` are this rank's rows of the global batch
+    (``parallel.shard_batch``), ``params`` its shards, and the logits its
+    rows; see ``check_mesh`` for the meshes the port takes."""
+    return _forward(cfg, params, tokens, positions, attn_fn,
+                    check_mesh(mesh, num_microbatches))
+
+
+def _forward(cfg: TransformerConfig, params: Params, tokens, positions, attn_fn,
+             groups: MeshGroups):
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     attn_fn = attn_fn or _default_attn(cfg)
@@ -392,10 +499,10 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     for i in range(cfg.layers):
         lp, lo = _layer(params, i)
         if remat:
-            x = checkpoint(_block, cfg, x, lp, lo, positions, attn_fn,
+            x = checkpoint(_block, cfg, x, lp, lo, positions, attn_fn, groups,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block(cfg, x, lp, lo, positions, attn_fn)
+            x = _block(cfg, x, lp, lo, positions, attn_fn, groups)
     return _logits(cfg, params, x)
 
 
@@ -403,12 +510,20 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
             mesh=None, num_microbatches: Optional[int] = None):
     """Next-token cross-entropy. batch: tokens [B,S] int, optional
     loss_mask [B,S]. Returns (loss, {"loss", "accuracy", "tokens"}), all
-    0-dim fp32 tensors on the tokens' device (no host sync)."""
+    0-dim fp32 tensors on the tokens' device (no host sync).
+
+    The loss is the sum of the nll over the kept targets divided by
+    their count, ``tokens``. Under ``mesh`` ``batch`` holds this rank's
+    rows (as ``forward``'s tokens): the count is the global one (the mask
+    summed over the batch's ranks, as JAX divides by the global mask
+    sum), the metrics are the global values, the same on every rank, and
+    ``loss`` is this rank's share of the global loss (the shares sum to
+    it over the batch's ranks), the value to differentiate."""
+    groups = check_mesh(mesh, num_microbatches)
     tokens = batch["tokens"]
     # Forward over the FULL sequence (as the JAX package, whose sequence
     # shards must keep S divisible by the mesh axis); shift at the logits.
-    logits = forward(cfg, params, tokens, attn_fn=attn_fn, mesh=mesh,
-                     num_microbatches=num_microbatches)[:, :-1].float()
+    logits = _forward(cfg, params, tokens, None, attn_fn, groups)[:, :-1].float()
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     tgt_logit = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
@@ -417,15 +532,15 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask[:, 1:].float()
-        denom = mask.sum().clamp_min(1.0)
-        loss = (nll * mask).sum() / denom
-        acc = (acc * mask).sum() / denom
+        nll, acc = nll * mask, acc * mask
+        denom = sum_partials(mask.sum(), groups.batch).clamp_min(1.0)
     else:
         # a fill, not a host-to-device copy (which would sync the stream)
-        denom = torch.full((), float(nll.numel()), device=nll.device)
-        loss = nll.mean()
-        acc = acc.mean()
-    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+        denom = torch.full((), float(nll.numel() * groups.n_batch), device=nll.device)
+    nll_sum = nll.sum()
+    sums = sum_partials(torch.stack([nll_sum.detach(), acc.sum()]), groups.batch)
+    return nll_sum / denom, {"loss": sums[0] / denom, "accuracy": sums[1] / denom,
+                             "tokens": denom}
 
 
 def trainable_mask(cfg: TransformerConfig, params: Params) -> Params:

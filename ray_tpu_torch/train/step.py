@@ -1,4 +1,5 @@
-"""Single-device train step (PyTorch port of ray_tpu/train/step.py).
+"""Train step (PyTorch port of ray_tpu/train/step.py), on one device or
+over a mesh.
 
 ``make_train_step(cfg, optimizer)`` returns ``run(state, batch) ->
 (state, metrics)``: the loss and the gradient of every leaf, a clip by
@@ -25,8 +26,19 @@ leaves ``t.detach()[i].requires_grad_()`` that share the stack's
 storage, each with its own grad, and the optimizer updates per-layer
 views of the stack in place.
 
-A ``mesh`` or ``num_microbatches`` (sharded and pipelined steps) is not
-ported yet and raises.
+Under a ``mesh`` (ray_tpu_torch.parallel.build_mesh; JAX's positional
+order: ``init_state(cfg, opt, mesh)``, ``make_train_step(cfg, opt, mesh,
+rules)``) each rank holds its shard of the state: expert leaves and their
+moments cut over ``expert`` (``state_shardings``), every other leaf
+whole. ``run`` takes the global batch, as JAX's does, and keeps this
+rank's rows (``batch_sharding``). The grads are summed over the data
+group, one in-place all-reduce a leaf; ``grad_norm`` and the clip's norm
+are over the whole logical grads (the squares of expert shards summed
+over the expert group); AdamW updates the local shards. The numbers are
+those of the single-device step on the global batch. The mesh path runs
+its collectives whatever the axes' sizes, so a mesh of one rank runs it
+too. Axes the port does not take yet raise NotImplementedError naming
+their ROADMAP item (ray_tpu_torch/models/transformer.py ``check_mesh``).
 """
 
 from __future__ import annotations
@@ -36,9 +48,14 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from ray_tpu_torch import default_device
 from ray_tpu_torch.models.transformer import (
-    Params, TransformerConfig, init_params, loss_fn, trainable_leaves,
+    Params, TransformerConfig, check_mesh, init_params, loss_fn, param_axes,
+    param_shapes, trainable_leaves,
+)
+from ray_tpu_torch.parallel.collectives import all_reduce_, sum_partials
+from ray_tpu_torch.parallel.mesh import mesh_device
+from ray_tpu_torch.parallel.sharding import (
+    Rules, is_sharded, shard_batch, shard_tree, spec_for,
 )
 
 TrainState = Dict[str, Any]
@@ -46,9 +63,6 @@ TrainState = Dict[str, Any]
 _STACKED = ("blocks", "lora")  # top-level keys whose leaves are [layers, ...]
 # the JAX package's fixed AdamW and clip settings (ray_tpu/train/step.py:49-51)
 B1, B2, EPS, MAX_NORM = 0.9, 0.95, 1e-8, 1.0
-_MESH_TODO = ("sharded, pipelined and microbatched train steps are not "
-              "ported yet (ROADMAP.md Queue A item 3: pipeline, ring "
-              "attention, sharding and expert parallelism, the next slice)")
 
 
 def _per_layer(tree: Params, leaf=None, stacked: bool = False) -> Params:
@@ -93,17 +107,21 @@ def _units(tree: Params) -> List[torch.Tensor]:
     return _flatten(_per_layer(tree))
 
 
-def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None):
+def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
+                mesh=None):
     """(loss, metrics, tree, grads): ``tree`` is ``params`` with each
     leaf a detached leaf that requires grad (a stacked leaf as its
     per-layer leaves, sharing its storage); ``grads`` are their grads in
-    ``_flatten(tree)`` order, the order of ``_units(params)``."""
+    ``_flatten(tree)`` order, the order of ``_units(params)``. Under
+    ``mesh`` (``batch`` this rank's rows) the grads are summed over the
+    data group in place: each rank holds the grads of the global loss,
+    expert leaves' for its shard."""
     tree = _per_layer(params, torch.Tensor.detach)
     leaves = _flatten(tree)
     for t in leaves:
         t.requires_grad_()
     with torch.enable_grad():
-        loss, metrics = loss_fn(cfg, tree, batch, attn_fn=attn_fn)
+        loss, metrics = loss_fn(cfg, tree, batch, attn_fn=attn_fn, mesh=mesh)
         grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
     # LoRA's wi_a/wi_b are never read under MoE (as in JAX): they get the
     # zero grad jax.value_and_grad gives them. Any other unread leaf is a
@@ -114,17 +132,22 @@ def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None):
             if not name.startswith(unread):
                 raise ValueError(f"params leaf {name} is not read by the loss")
             grads[i] = torch.zeros_like(leaves[i])
+    grads = all_reduce_(grads, check_mesh(mesh).batch)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return metrics["loss"], metrics, tree, grads
 
 
-def value_and_grad(cfg: TransformerConfig, params: Params, batch,
-                   attn_fn=None) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
+def value_and_grad(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
+                   mesh=None, rules: Optional[Rules] = None
+                   ) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
     """``((loss, metrics), grads)`` with ``grads`` shaped like ``params``
     (stacked leaves stacked again), as ``jax.value_and_grad(loss_fn,
-    has_aux=True)`` gives them. For tests and checks; the step itself keeps
-    the per-layer grads."""
-    loss, metrics, tree, grads = _flat_grads(cfg, params, batch, attn_fn)
+    has_aux=True)`` gives them. Under ``mesh``, ``batch`` is the global
+    batch (as the step's) and ``params`` this rank's shards: the metrics
+    and grads are the global loss's, an expert leaf's grad its shard. For
+    tests and checks; the step itself keeps the per-layer grads."""
+    loss, metrics, tree, grads = _flat_grads(
+        cfg, params, shard_batch(mesh, batch, rules), attn_fn, mesh)
     it = iter(grads)  # grads come in _flatten(tree) order
 
     def fill(t):
@@ -214,13 +237,44 @@ def default_optimizer(cfg: TransformerConfig, lr: float = 3e-4,
     return AdamW(cfg, lr=lr, weight_decay=weight_decay)
 
 
-def init_state(cfg: TransformerConfig, optimizer: AdamW, seed: int = 0,
+def state_shardings(cfg: TransformerConfig, optimizer: AdamW, mesh,
+                    rules: Optional[Rules] = None) -> TrainState:
+    """The train state's layout under ``mesh``, each leaf's ``spec_for``
+    entries (as JAX's PartitionSpecs): the params' from ``param_axes``,
+    Adam's moments as their params', () for the scalars. A leaf whose
+    spec is not () holds this rank's shard."""
+    check_mesh(mesh)
+    specs = _map(param_axes(cfg), lambda axes: spec_for(axes, rules, mesh))
+    train = trainable_leaves(cfg, specs)
+    return {"params": specs, "opt_state": {"mu": train, "nu": train, "count": ()},
+            "step": ()}
+
+
+def batch_sharding(mesh, rules: Optional[Rules] = None) -> Tuple:
+    """tokens [B, S] → the spec of (batch, seq): the batch cut over the
+    data axes."""
+    return spec_for(("batch", "seq"), rules, mesh)
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def init_state(cfg: TransformerConfig, optimizer: AdamW, mesh=None,
+               rules: Optional[Rules] = None, seed: int = 0, *,
                device=None) -> TrainState:
-    """Params from ``init_params`` with a generator seeded ``seed`` on
-    ``device``, zero moments, step 0."""
-    device = default_device(device)
+    """Params from ``init_params`` with a generator seeded ``seed``, zero
+    moments, step 0, on ``device`` (default: the mesh's device type, else
+    the card). Under ``mesh`` each rank draws the whole init and keeps its
+    shard (``state_shardings``), so the sharded state is the single-device
+    one cut."""
+    check_mesh(mesh)
+    device = mesh_device(mesh, device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
                          device)
+    if mesh is not None:  # clone a cut leaf: the whole one is freed
+        params = shard_tree(mesh, params, param_axes(cfg), rules,
+                            lambda t: t.clone() if t._base is not None else t)
     return {"params": params, "opt_state": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -231,46 +285,71 @@ def _batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _clone(tree):
+    return ({k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.clone())
+
+
 def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None,
-                    device=None, num_microbatches: Optional[int] = None,
+                    rules: Optional[Rules] = None, donate: bool = True,
+                    num_microbatches: Optional[int] = None, *, device=None,
                     attn_fn=None) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
-    """(state, batch) → (state, metrics) on one device. ``attn_fn(q,k,v)``
-    overrides attention (default: the flash kernels)."""
-    if mesh is not None or num_microbatches is not None:
-        raise NotImplementedError(_MESH_TODO)
-    device = default_device(device)
+    """(state, batch) → (state, metrics), on one device or over ``mesh``
+    (``batch`` the global batch). The state is updated in place and
+    returned; with ``donate=False`` a copy of it is, and the input stays
+    as it was. ``attn_fn(q,k,v)`` overrides attention (default: the flash
+    kernels)."""
+    expert = check_mesh(mesh, num_microbatches).expert
+    device = mesh_device(mesh, device)
+    # per unit (the order of _flatten(tree)): whether it trains, and
+    # whether it holds a shard cut over the mesh (an expert leaf), whose
+    # squared norm is summed over the expert group
+    meta = _map(param_shapes(cfg), lambda sf: torch.empty(sf[0], device="meta"))
+    names = _paths(_per_layer(meta))
+    trains = set(_paths(_per_layer(trainable_leaves(cfg, meta))))
+    keep_idx = [i for i, n in enumerate(names) if n in trains]
+    keep = torch.tensor(keep_idx, device=device)
+    specs = _map(param_axes(cfg), lambda axes: spec_for(axes, rules, mesh))
+    cut = torch.tensor([is_sharded(_leaf(specs, n)) for n in names], device=device)
 
     def run(state: TrainState, batch: Dict[str, Any]):
+        if not donate:
+            state = _clone(state)
         params = state["params"]
-        _, metrics, tree, grads = _flat_grads(cfg, params,
-                                              _batch_to(batch, device), attn_fn)
-        pos = {id(t): i for i, t in enumerate(_flatten(tree))}
-        keep = [pos[id(t)] for t in _flatten(trainable_leaves(cfg, tree))]
-        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-
-        def global_norm(idx):
-            return torch.stack([norms[i] for i in idx]).square().sum().sqrt()
-
-        metrics["grad_norm"] = global_norm(range(len(grads)))
+        _, metrics, tree, grads = _flat_grads(
+            cfg, params, shard_batch(mesh, _batch_to(batch, device), rules), attn_fn, mesh)
+        sq = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)).square()
+        if expert is not None:
+            sq = torch.where(cut, sum_partials(torch.where(cut, sq, 0.0), expert), sq)
+        metrics["grad_norm"] = sq.sum().sqrt()
         optimizer.update_(_units(trainable_leaves(cfg, params)),
-                          [grads[i] for i in keep], state["opt_state"],
-                          global_norm(keep))
+                          [grads[i] for i in keep_idx], state["opt_state"],
+                          sq.index_select(0, keep).sum().sqrt())
         state["step"] += 1
         return state, metrics
 
     return run
 
 
-def make_eval_step(cfg: TransformerConfig, mesh=None,
-                   device=None) -> Callable:
-    """(params, batch) → metrics, no grad."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    device = default_device(device)
+def _leaf(tree, name: str):
+    """The leaf of a params-shaped ``tree`` a unit name (``_paths``) is
+    cut from: ``blocks/wq[3]`` → ``tree["blocks"]["wq"]``."""
+    for key in name.split("[")[0].split("/"):
+        tree = tree[key]
+    return tree
+
+
+def make_eval_step(cfg: TransformerConfig, mesh=None, rules: Optional[Rules] = None,
+                   *, device=None) -> Callable:
+    """(params, batch) → metrics, no grad; under ``mesh`` ``batch`` is the
+    global batch and the metrics are global."""
+    check_mesh(mesh)
+    device = mesh_device(mesh, device)
 
     @torch.no_grad()
     def run(params: Params, batch: Dict[str, Any]):
-        _, metrics = loss_fn(cfg, params, _batch_to(batch, device))
+        _, metrics = loss_fn(cfg, params, shard_batch(mesh, _batch_to(batch, device), rules),
+                             mesh=mesh)
         return metrics
 
     return run

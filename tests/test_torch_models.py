@@ -18,6 +18,7 @@ from ray_tpu.models import transformer as JT
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.decoding import forward_cached, init_cache
+from ray_tpu_torch.parallel import MeshSpec
 
 FP32_ATOL = 1e-4
 
@@ -191,7 +192,14 @@ def test_unported_paths_raise():
     dense = T.config("debug", dtype=torch.float32)
     params = T.init_params(dense, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward(dense, params, toks, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.loss_fn(dense, params, {"tokens": toks}, mesh=object())
+    # mesh axes the port does not take yet, by their ROADMAP.md Queue A item
+    for spec, item in ((MeshSpec(fsdp=2), 3), (MeshSpec(tensor=2), 3),
+                       (MeshSpec(sequence=2), 2), (MeshSpec(stage=2), 4)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A item {item}"):
+            T.forward(dense, params, toks, mesh=spec)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A item {item}"):
+            T.loss_fn(dense, params, {"tokens": toks}, mesh=spec)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 4"):
+        T.loss_fn(dense, params, {"tokens": toks}, num_microbatches=2)
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is a DeviceMesh
+        T.forward(dense, params, toks, mesh=MeshSpec())

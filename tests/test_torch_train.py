@@ -28,6 +28,7 @@ from ray_tpu.train import step as JS
 from ray_tpu_torch import train as S
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.convert import state_from_jax
+from ray_tpu_torch.parallel import MeshSpec as TMeshSpec
 
 ATOL = 2e-5
 LR = 3e-4
@@ -199,6 +200,7 @@ def _unflat(flat, like, prefix=""):
 def test_unported_step_options_raise():
     _, tcfg = _configs("dense")
     opt = S.default_optimizer(tcfg)
-    for kw in ({"mesh": object()}, {"num_microbatches": 2}):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    for kw, item in (({"mesh": TMeshSpec(fsdp=4, tensor=2)}, 3),
+                     ({"num_microbatches": 2}, 4)):
+        with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
             S.make_train_step(tcfg, opt, device="cpu", **kw)
