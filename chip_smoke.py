@@ -24,7 +24,16 @@ before it and read just after:
   through a mesh of one rank (an NCCL world of one, MeshSpec() through
   ray_tpu_torch.parallel), the data and expert axes' code with every
   collective a copy: 2 warm-up and 3 timed steps, held against the
-  unsharded steps (step 0's loss bit-identical).
+  unsharded steps (step 0's loss bit-identical);
+- ring attention: every rank of a ring of 4 over llama3_8b's attention
+  at S = 4 x 8192 (bf16, causal, forward and backward) driven on this
+  card through the port's per-rank loops, held against one flash call
+  over the whole sequence, and non-causal at 4 x 2048 and against the
+  plain versions at 4 x 1024;
+- sharded dense training: llama2_7b_lora at full width through a mesh
+  of one rank, the FSDP and tensor-parallel code with every collective a
+  copy: 2 warm-up and 3 timed steps, held against the unsharded steps
+  (step 0's loss bit-identical).
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -102,12 +111,29 @@ TIMED_BWD = ("train_step", "mixtral_train")
 # apart (0.0625 at |dV| in [8, 16)) where 2 * gap is just under it. Every
 # other shape keeps the 2 * gap bound; each row reports both.
 ULP_RULE_BWD = ("mixtral_train",)
+# The ring (ring_vs_flash) merges bf16 partials: each block's O, dQ, dK,
+# dV leaves the kernel rounded to bf16 before the fp32 merge, where one
+# call over the whole sequence rounds once, so ring and single call can
+# land one ulp apart where 2 * gap is under one ulp (non-causal O at 4 x
+# 2048: 0.000977 against 2 * gap + 1e-4 = 0.000896). RING_RULE holds
+# each of them (1) within the single call's own 2 * gap + 1e-4 of the
+# fp32 call on the same inputs, and (2) to the single bf16 call by the
+# per-element rule of ULP_RULE_BWD; LSE (fp32) by 2 * gap + 1e-4. Each
+# row also reports the plain 2 * gap rule (within_2gap).
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 MOE_LAYERS = 4  # mixtral_8x7b's 32 layers cut to 4: 46.7 B params do not fit 80 GB
 MOE_TOKENS = 1024  # tokens of the one-layer card-vs-CPU check
 MOE_FP32_TOL = 1e-4  # card vs CPU in fp32 (TF32 off): summation order only
 MESH_TIMED = 3  # timed steps of the sharded MoE step (after TRAIN_WARMUP)
+RING_N = 4  # ranks of the ring driven on one card
+# (name, B, S of the whole sequence, H, Hkv, D, causal, reference): llama3_8b's
+# attention (long context is what the sequence axis is for), bf16; the
+# ring held against one flash call over the whole sequence, or against
+# the plain versions
+RING_SHAPES = [("llama3_8b_32k", 1, RING_N * 8192, 32, 8, 128, True, "flash"),
+               ("noncausal_8k", 1, RING_N * 2048, 32, 8, 128, False, "flash"),
+               ("plain_4k", 1, RING_N * 1024, 32, 8, 128, True, "plain")]
 
 
 def emit(obj) -> None:
@@ -544,6 +570,137 @@ def flash_bwd_vs_plain(kernels, smi) -> None:
             torch.cuda.empty_cache()
 
 
+def ring_on_one_card(q, k, v, do, causal, n, timed=False):
+    """Every rank's computation of a ring of ``n`` over the sequence of q,
+    k, v [B, S, H, D] on this card, through the port's per-rank loops:
+    rank ``my`` is handed the K/V blocks it would receive, in ring order
+    (from my, my-1, ...), and in the backward each block's dK/dV
+    accumulators, as the P2P transport hands them. Returns (O, LSE, dQ,
+    dK, dV) over the whole sequence and, with ``timed``, each rank's
+    forward and backward device ms (CUDA events)."""
+    from ray_tpu_torch.ops.ring_attention import (
+        ring_attention_rank_bwd, ring_attention_rank_fwd,
+    )
+
+    qs, ks, vs, dos = (t.chunk(n, dim=1) for t in (q, k, v, do))
+    order = [[(my - t) % n for t in range(n)] for my in range(n)]
+    dk = [torch.zeros_like(x, dtype=torch.float32) for x in ks]
+    dv = [torch.zeros_like(x, dtype=torch.float32) for x in vs]
+    outs, dqs, ms = [], [], []
+    for my in range(n):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if timed else None
+        if timed:
+            events[0].record()
+        o, lse = ring_attention_rank_fwd(qs[my], [(ks[s_], vs[s_], s_) for s_ in order[my]],
+                                         my, causal)
+        if timed:
+            events[1].record()
+        dqs.append(ring_attention_rank_bwd(
+            qs[my], o, lse, dos[my], [(ks[s_], vs[s_], s_, dk[s_], dv[s_]) for s_ in order[my]],
+            my, causal))
+        outs.append((o, lse))
+        if timed:
+            events[2].record()
+            events[2].synchronize()
+            ms.append({"fwd_ms": events[0].elapsed_time(events[1]),
+                       "bwd_ms": events[1].elapsed_time(events[2])})
+    out = (torch.cat([o for o, _ in outs], 1), torch.cat([l_ for _, l_ in outs], 2),
+           torch.cat(dqs, 1), torch.cat(dk, 1).to(k.dtype), torch.cat(dv, 1).to(v.dtype))
+    return out, ms
+
+
+def ring_vs_flash(smi) -> dict:
+    """Ring attention, every rank of a ring of RING_N on this one card
+    (the card holds one NCCL rank, so the ring's P2P transport is held
+    on the CPU under gloo, tests/test_torch_ring_attention.py): per rank
+    the flash forward on each visible block merged by log-sum-exp, and
+    the flash backward on each with the global O and LSE. O, LSE, dQ, dK
+    and dV are held by RING_RULE against one flash call over the whole
+    sequence (gap: that call's distance from the same call in fp32, on
+    the CUDA-core kernels), and at S = 4 x 1024 against the plain
+    versions. Launches: each kernel n(n+1)/2 times a ring under the causal mask
+    (no launch for a wholly masked block), n^2 without it. Returns the
+    causal 32k ring's launches, the ring path of the kernels line."""
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("ring_vs_flash"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        ring_launches = None
+        for sname, b, s, h, hkv, d, causal, ref in RING_SHAPES:
+            n = RING_N
+            q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+            v = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+            do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            # ---- the ring path: counts from 0, read right after ----------
+            reset_launches(A)
+            ring, _ = ring_on_one_card(q, k, v, do, causal, n)
+            torch.cuda.synchronize()
+            launches = read_launches(A)
+            # ---- end of the ring path ------------------------------------
+            per = n * (n + 1) // 2 if causal else n * n
+            want = {name: per for name in COUNTERS}
+            fwd, bwd = ((A.flash_attention_fwd, A.flash_attention_bwd) if ref == "flash"
+                        else (A._flash_fwd_reference, A._flash_bwd_reference))
+            o1, lse1 = fwd(q, k, v, causal)
+            single = (o1, lse1, *bwd(q, k, v, o1, lse1, do, causal))
+            # the same call in fp32 (the CUDA-core kernels for "flash")
+            q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+            o32, lse32 = fwd(q32, k32, v32, causal)
+            wide = (o32, lse32, *bwd(q32, k32, v32, o32, lse32, do32, causal))
+            del q32, k32, v32, do32
+            torch.cuda.synchronize()
+            names = ("o", "lse", "dq", "dk", "dv")
+            gaps = {x: max_abs(a, w) for x, a, w in zip(names, single, wide)}
+            errs = {x: max_abs(r, a) for x, r, a in zip(names, ring, single)}
+            tol = {x: 2 * gaps[x] + FP32_BWD_TOL for x in names}
+            finite = all(bool(torch.isfinite(t).all()) for t in ring)
+            # RING_RULE: the ring's distance from the fp32 result within the
+            # single call's 2 * gap + 1e-4, and the ring against the single
+            # bf16 call by the per-element rule of ULP_RULE_BWD
+            vs_fp32 = {x: max_abs(r, w) for x, r, w in zip(names, ring, wide)}
+            ulp_excess = {x: ulp_rule_excess(r, a, 2 * gaps[x], FP32_BWD_TOL)
+                          for x, r, a in zip(names, ring, single) if x != "lse"}
+            row = {"ring": sname, "n": n, "b": b, "s": s, "s_local": s // n, "h": h,
+                   "hkv": hkv, "d": d, "causal": causal, "dtype": "bf16",
+                   "against": "one flash call over the whole sequence" if ref == "flash"
+                   else "_flash_fwd_reference / _flash_bwd_reference over the whole sequence",
+                   "max_abs_err": errs, "gap_bf16_vs_fp32": gaps, "tol": tol,
+                   "ring_vs_fp32": vs_fp32, "ulp_rule_excess": ulp_excess,
+                   "launches": launches, "want_launches": want, "finite": finite,
+                   "sends": "held on the CPU under gloo (tests/test_torch_ring_attention.py)"}
+            del wide
+            if ref == "flash":
+                # timed: each rank's device ms (after the gated run), the
+                # single call's fwd + bwd, and the bound of that call's work
+                _, ranks_ms = ring_on_one_card(q, k, v, do, causal, n, timed=True)
+                fwd_ms = cuda_ms(lambda: A.flash_attention_fwd(q, k, v, causal), 3)
+                bwd_ms = cuda_ms(lambda: A.flash_attention_bwd(q, k, v, o1, lse1, do, causal), 3)
+                bound = (attention_bound_ms(b, s, s, h, hkv, d, causal, torch.bfloat16)[0]
+                         + sum(bwd_bound_ms(kn, b, s, s, h, hkv, d, causal, torch.bfloat16)[0]
+                               for kn in ("flash_bwd_dq", "flash_bwd_dkv")))
+                total = sum(r_["fwd_ms"] + r_["bwd_ms"] for r_ in ranks_ms)
+                row.update(rank_ms=ranks_ms, ring_total_ms=total,
+                           ring_slowest_rank_ms=max(r_["fwd_ms"] + r_["bwd_ms"]
+                                                    for r_ in ranks_ms),
+                           single_fwd_ms=fwd_ms, single_bwd_ms=bwd_ms,
+                           single_ms=fwd_ms + bwd_ms, bound_ms=bound,
+                           kept_pairs=kept_pairs(s, s, causal), card=smi)
+            within_2gap = all(errs[x] <= tol[x] for x in names)
+            within = (all(vs_fp32[x] <= tol[x] for x in names) and errs["lse"] <= tol["lse"]
+                      and all(e <= 0 for e in ulp_excess.values()))
+            row.update(within_2gap=within_2gap, within_ring_rule=within)
+            emit(row)
+            if not (within and finite and launches == want):
+                raise AssertionError(f"ring attention disagrees at {row}")
+            if sname == RING_SHAPES[0][0]:
+                ring_launches = launches
+            del q, k, v, do, ring, single, o1, lse1
+            gc.collect()
+            torch.cuda.empty_cache()
+    return ring_launches
+
+
 def train_full_width_check() -> None:
     """Two layers of llama2_7b_lora at full width, fp32 params and
     compute, B=1 x 2048: the train step with the kernels against the same
@@ -612,7 +769,8 @@ def train_steps(smi) -> dict:
     """The training path at full width: llama2_7b_lora, all 32 layers, bf16
     params (bench.py:476-480 sets them for one chip), B=8 x 2048, remat,
     tokens from seed 0 and the same batch each step as bench.py's
-    _run_bench. Returns one step's kernel launches."""
+    _run_bench. Returns one step's kernel launches and the run's numbers
+    (for mesh_train_steps)."""
     from ray_tpu_torch import train as S
     from ray_tpu_torch.models import transformer as T
     from ray_tpu_torch.ops import attention as A
@@ -635,7 +793,7 @@ def train_steps(smi) -> dict:
         want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
                 "flash_bwd_dkv": cfg.layers}  # forward + remat re-run, one backward
         torch.cuda.reset_peak_memory_stats()
-        losses, step_ms = [], []
+        losses, step_ms, metrics = [], [], []
         for i in range(TRAIN_WARMUP + TRAIN_TIMED):
             # ---- the main path: counts from 0, read right after ------
             reset_launches(A)
@@ -647,6 +805,7 @@ def train_steps(smi) -> dict:
             launches = read_launches(A)
             # ---- end of the main path --------------------------------
             losses.append(float(m["loss"]))
+            metrics.append({k: float(v) for k, v in m.items()})
             emit({"train_step": i, "warmup": i < TRAIN_WARMUP, "ms": step_ms[-1],
                   "loss": losses[-1], "grad_norm": float(m["grad_norm"]),
                   "accuracy": float(m["accuracy"]), "launches": launches})
@@ -656,13 +815,17 @@ def train_steps(smi) -> dict:
         med = timed[len(timed) // 2]
         tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
         peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
+        peak_bytes = torch.cuda.max_memory_allocated()
+        summary = {"step_ms_median": med, "tokens_per_s": tok_s,
+                   "mfu_6n": 6 * cfg.num_params() * tok_s / peak,
+                   "peak_allocated_bytes": peak_bytes, "metrics": metrics}
         emit({"model": "llama2_7b_lora", "layers": cfg.layers, "batch": TRAIN_BATCH,
               "seq": MAX_LEN, "param_dtype": "bfloat16", "remat": cfg.remat,
               "params": cfg.num_params(), "init_s": init_s,
               "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
               "tokens_per_s": tok_s,
-              "mfu_6n": 6 * cfg.num_params() * tok_s / peak, "peak_flops": peak,
-              "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "mfu_6n": summary["mfu_6n"], "peak_flops": peak,
+              "peak_allocated_bytes": peak_bytes,
               "losses": losses, "clock": "host, synchronized", "card": smi})
         emit({"profile": "train_step", "card": smi, **profiled(lambda: run(state, batch), top=12)})
         torch.cuda.synchronize()
@@ -678,6 +841,132 @@ def train_steps(smi) -> dict:
             raise AssertionError(f"frozen leaves changed {changed}; LoRA leaves unmoved {unmoved}")
         del state, params, frozen, lora0
         torch.cuda.empty_cache()
+    return launches, summary
+
+
+def design_collectives(cfg, units, masked):
+    """The collectives a train step issues by kind through a mesh with no
+    sequence axis, as the design lays them out
+    (ray_tpu_torch/parallel/collectives.py; tests/sharded_step_ref.py
+    holds the same count under 8 gloo ranks), for L layers each run R
+    times forward (2 under remat) and U grad tensors:
+
+    - all_gather: per block run, each leaf cut over fsdp the block reads
+      (wq, wk, wv, wo, wi_gate, wi_up, wo_mlp; MoE's router; LoRA's wq_a,
+      wv_a and, dense only, wi_a) and MoE's tokens; the embedding table
+      twice (lookup, unembedding); the sequence shards' first tokens;
+    - reduce_scatter: one per gather of a leaf, in the backward;
+    - all_reduce: per block run attention's and the MLP's partial sums
+      over tensor (MoE: the expert combine), but for the dense MLP's in
+      the remat re-run (torch's checkpoint stops once the backward's
+      saved tensors are recomputed); per block in the backward the
+      attention and MLP inputs' grads (MoE: the expert input's) and
+      LoRA's x·A grads; the embedding's vocab partials and the
+      unembedding input's grad; the loss's max, partial sums and argmax
+      min, its metrics and a loss_mask's sum; U grads; the norm.
+    """
+    r, n = (2 if cfg.remat else 1), cfg.layers
+    moe = bool(cfg.num_experts)
+    lora = (2 if moe else 3) if cfg.lora_rank else 0
+    leaves = 7 + moe + lora
+    return {"all_gather": r * n * (leaves + moe) + 3, "reduce_scatter": n * (leaves + moe) + 2,
+            "all_reduce": (2 * r - (r - 1) * (not moe)) * n + (2 + lora) * n + 2 + 4
+            + int(masked) + units + 1, "send": 0}
+
+
+def mesh_train_steps(smi, unsharded) -> dict:
+    """The dense sharded training path on a mesh of one rank: an NCCL
+    world of one (ray_tpu_torch.parallel.single_device_mesh on cuda,
+    every axis of MeshSpec() 1), llama2_7b_lora at full width with
+    train_steps' seed and batch, through init_state(cfg, opt, mesh) and
+    make_train_step(cfg, opt, mesh): the FSDP gathers and their
+    reduce-scatters, the tensor group's sums, the vocab-parallel
+    embedding and loss, each at size one. 2 warm-up, MESH_TIMED timed
+    and 1 profiled step. Held against ``unsharded`` (train_steps'
+    numbers): step 0's loss and accuracy bit-identical, its grad_norm
+    within 1e-5 relative; launches 64/32/32 and the design's collectives
+    every step. Returns one step's kernel launches."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import parallel as P
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("mesh_train_steps"):
+        cfg = T.config("llama2_7b_lora", param_dtype=torch.bfloat16)
+        opt = S.default_optimizer(cfg)
+        mesh = P.single_device_mesh("cuda")
+        state = run = None
+        try:
+            emit({"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                  "backend": dist.get_backend(), "world": dist.get_world_size()})
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"a cuda mesh on {dist.get_backend()}")
+            state = S.init_state(cfg, opt, mesh, seed=SEED)
+            run = S.make_train_step(cfg, opt, mesh)
+            tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+                0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+            batch = {"tokens": tokens}
+            want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+                    "flash_bwd_dkv": cfg.layers}  # forward + remat re-run, one backward
+            want_coll = design_collectives(cfg, len(S.step._units(state["params"])), False)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            metrics, step_ms = [], []
+            for i in range(TRAIN_WARMUP + MESH_TIMED):
+                # ---- the main path: counts from 0, read right after ------
+                reset_launches(A)
+                P.reset_collectives()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = run(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                launches, coll = read_launches(A), P.read_collectives()
+                # ---- end of the main path --------------------------------
+                metrics.append({k: float(v) for k, v in m.items()})
+                emit({"mesh_train_step": i, "warmup": i < TRAIN_WARMUP,
+                      "ms": step_ms[-1], **metrics[-1], "launches": launches,
+                      "collectives": coll})
+                if launches != want or coll != want_coll:
+                    raise AssertionError(f"mesh step {i} launched {launches} and issued "
+                                         f"{coll}, expected {want} and {want_coll}")
+            peak_bytes = torch.cuda.max_memory_allocated()
+            timed = sorted(step_ms[TRAIN_WARMUP:])
+            med = timed[len(timed) // 2]
+            tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
+            peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
+            ref = unsharded["metrics"]
+            cmp = {"step0_loss": [metrics[0]["loss"], ref[0]["loss"]],
+                   "step0_accuracy": [metrics[0]["accuracy"], ref[0]["accuracy"]],
+                   "step0_grad_norm": [metrics[0]["grad_norm"], ref[0]["grad_norm"]],
+                   "bit_identical_steps": sum(a == b for a, b in zip(metrics, ref)),
+                   "tol": {"grad_norm_rel": 1e-5}}
+            emit({"model": "llama2_7b_lora", "layers": cfg.layers,
+                  "mesh": "MeshSpec() on an NCCL world of one",
+                  "batch": TRAIN_BATCH, "seq": MAX_LEN, "param_dtype": "bfloat16",
+                  "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
+                  "tokens_per_s": tok_s, "mfu_6n": 6 * cfg.num_params() * tok_s / peak,
+                  "peak_allocated_bytes": peak_bytes,
+                  "unsharded": {k: unsharded[k] for k in (
+                      "step_ms_median", "tokens_per_s", "mfu_6n", "peak_allocated_bytes")},
+                  "against_unsharded": cmp, "clock": "host, synchronized", "card": smi})
+            ok = (cmp["step0_loss"][0] == cmp["step0_loss"][1]
+                  and cmp["step0_accuracy"][0] == cmp["step0_accuracy"][1]
+                  and abs(cmp["step0_grad_norm"][0] - cmp["step0_grad_norm"][1])
+                  <= 1e-5 * abs(cmp["step0_grad_norm"][1])
+                  and all(np.isfinite([m_["loss"] for m_ in metrics])))
+            if not ok:
+                raise AssertionError(f"mesh step and unsharded step disagree: {cmp}")
+            emit({"profile": "mesh_train_step", "card": smi,
+                  **profiled(lambda: run(state, batch), top=16)})
+            torch.cuda.synchronize()
+        finally:
+            del state, run
+            dist.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
     return launches
 
 
@@ -988,14 +1277,9 @@ def moe_mesh_train_steps(smi, unsharded) -> dict:
             batch = {"tokens": tokens}
             want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
                     "flash_bwd_dkv": cfg.layers}  # forward + remat re-run, one backward
-            # the design's collectives a step (ray_tpu_torch/parallel/collectives.py):
-            # per MoE layer the tokens' gather in the forward and the remat
-            # re-run, its reduce-scatter in the backward, the combine's
-            # all-reduce twice and the input grad's once; then one all-reduce
-            # per grad tensor, the norm's and the metrics'
-            units = len(S.step._units(state["params"]))
-            want_coll = {"all_gather": 2 * cfg.layers, "reduce_scatter": cfg.layers,
-                         "all_reduce": 3 * cfg.layers + units + 2}
+            # the design's collectives a step (design_collectives): the MoE
+            # layers' and, each at size one, the FSDP, tensor and loss ones
+            want_coll = design_collectives(cfg, len(S.step._units(state["params"])), False)
             gc.collect()
             torch.cuda.reset_peak_memory_stats()
             metrics, step_ms = [], []
@@ -1191,8 +1475,12 @@ def main() -> int:
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
 
     flash_bwd_vs_plain(kernels, smi)
+    ring = ring_vs_flash(smi)
     train_full_width_check()
-    train = train_steps(smi)
+    train, train_numbers = train_steps(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_train_steps(smi, train_numbers)
     gc.collect()
     torch.cuda.empty_cache()
     moe_vs_cpu()
@@ -1202,6 +1490,7 @@ def main() -> int:
     for name, row in kernels.items():
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "train_step": train[name],
+                                   "ring": ring[name], "mesh_train_step": mesh[name],
                                    "moe_train_step": moe[name],
                                    "moe_mesh_train_step": moe_mesh[name]}
         if name != "flash_fwd":  # the training step is their main path

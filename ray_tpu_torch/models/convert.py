@@ -10,7 +10,7 @@ module never imports JAX (nor optax: the caller pulls mu, nu and count
 out of the optax state).
 
 Under a ``mesh`` (ray_tpu_torch.parallel) both return this rank's shard:
-expert leaves, and their Adam moments, cut over the expert axis as
+each leaf, and its Adam moments, cut over fsdp, tensor and expert as
 ``param_axes`` and the rules place them, so JAX's weights carry across
 into a sharded state.
 """
@@ -26,7 +26,7 @@ from ray_tpu_torch.models.transformer import (
     TransformerConfig, check_mesh, param_axes, param_shapes, trainable_leaves,
 )
 from ray_tpu_torch.parallel.mesh import mesh_device
-from ray_tpu_torch.parallel.sharding import Rules, local_shard
+from ray_tpu_torch.parallel.sharding import Rules, check_rules, local_shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -49,7 +49,8 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig,
     overrides every leaf's dtype (else each keeps its source dtype).
     Shapes are checked against the port's ``param_shapes``; under
     ``mesh`` each leaf is then cut to this rank's shard."""
-    check_mesh(mesh)
+    check_mesh(mesh, cfg=cfg)
+    check_rules(rules)
     return _convert(np_params, param_shapes(cfg), param_axes(cfg),
                     mesh_device(mesh, device), dtype, "", mesh, rules)
 
@@ -74,7 +75,7 @@ def state_from_jax(np_state: Dict[str, Any], cfg: TransformerConfig,
     ``count`` (Adam's step count) and ``step``. Every leaf keeps its
     source dtype; shapes are checked; under ``mesh`` the params and
     moments are this rank's shards."""
-    check_mesh(mesh)
+    check_mesh(mesh, cfg=cfg)
     device = mesh_device(mesh, device)
     want = trainable_leaves(cfg, param_shapes(cfg))
     axes = trainable_leaves(cfg, param_axes(cfg))

@@ -17,14 +17,30 @@ drop) but dispatches by index: the kept tokens are gathered into an
 multiplies by one-hot ``[k·T, E, C]`` tensors (see ``_moe_mlp``).
 
 Under a mesh (a DeviceMesh from ray_tpu_torch.parallel.build_mesh) the
-model runs on this rank's rows of the batch and its shards of the
-params: the batch is cut over the data axes (replica, data), the expert
-leaves over ``expert``, as ``param_axes`` and the JAX package's rules
-place them. The MoE layer then routes over the data group's gathered
-tokens and sums its experts' outputs over the expert group, and the loss
-divides by the global mask sum (ray_tpu_torch/parallel/collectives.py).
-Other mesh axes above 1, and microbatches, raise NotImplementedError
-naming their ROADMAP row (``_MESH_TODO``).
+model runs on this rank's part of the batch and its shards of the
+params, placed as ``param_axes`` and the JAX package's DEFAULT_RULES
+place them; the collectives JAX's GSPMD program derives are written out
+(ray_tpu_torch/parallel/collectives.py):
+
+- data (replica, data, fsdp): the batch rows are cut; the loss divides
+  by the global mask sum;
+- sequence: the tokens are cut along S; attention is ring attention
+  (ray_tpu_torch/ops/ring_attention.py), RoPE takes global positions,
+  and each shard's last target is the next shard's first token;
+- fsdp (ZeRO-3): each leaf's ``embed`` dim is cut; a layer gathers its
+  leaves before use (``gather_dim``, whose backward reduce-scatters the
+  grads), in the remat re-run too;
+- tensor (Megatron): ``wq``/``wk``/``wv``/``wi_*`` and LoRA's B are cut
+  on their output dim (heads, kv_heads, mlp), ``wo``/``wo_mlp`` on their
+  input dim, the embedding and unembedding over the vocabulary: the
+  lookup is masked to the rank's rows and summed, the loss takes a
+  distributed log-sum-exp, target logit and argmax;
+- expert: a MoE layer routes over the data group's gathered tokens and
+  sums its local experts' outputs over the expert group.
+
+The mesh path issues its collectives whatever the axes' sizes. ``stage``
+above 1 and microbatches, and MoE under sequence, fsdp or tensor above
+1, raise NotImplementedError naming their ROADMAP row (``check_mesh``).
 """
 
 from __future__ import annotations
@@ -40,41 +56,52 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import default_device
 from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel.collectives import (
-    NO_MESH, MeshGroups, gather_rows, mesh_groups, sum_grads, sum_partials,
+    NO_MESH, MeshGroups, gather_dim, gather_rows, max_over, mesh_groups, min_over,
+    sum_grads, sum_partials,
 )
 from ray_tpu_torch.parallel.mesh import mesh_axis_size
+from ray_tpu_torch.parallel.sharding import axis_dim
 
 Params = Dict[str, Any]
 
-# mesh axes (above 1) and options the port does not take yet, by the
-# ROADMAP.md Queue A item that brings them
-_MESH_TODO = {
-    "sequence": "item 2 (ring attention and the sequence axis)",
-    "fsdp": "item 3 (FSDP and tensor parallelism)",
-    "tensor": "item 3 (FSDP and tensor parallelism)",
-    "stage": "item 4 (pipeline)",
-    "num_microbatches": "item 4 (pipeline)",
-}
+# what the port does not take yet, by the ROADMAP.md Queue A row that
+# brings it
+_PIPELINE = "item 4 (pipeline)"
+_MOE_AXES = "item 4b (mixture-of-experts under sequence, fsdp and tensor)"
 
 
-def check_mesh(mesh, num_microbatches: Optional[int] = None) -> MeshGroups:
+def check_mesh(mesh, num_microbatches: Optional[int] = None,
+               cfg: Optional["TransformerConfig"] = None) -> MeshGroups:
     """The groups the model's collectives run on under ``mesh`` (NO_MESH
-    for None), after checking that the port runs it: an axis of
-    ``_MESH_TODO`` above 1 (``mesh`` may be a DeviceMesh, a MeshSpec or a
-    sizes mapping for this check) or ``num_microbatches`` raises
-    NotImplementedError naming its ROADMAP item; a mesh that passes must
-    be a DeviceMesh."""
+    for None), after checking that the port runs it: ``stage`` above 1
+    (``mesh`` may be a DeviceMesh, a MeshSpec or a sizes mapping for the
+    checks), ``num_microbatches``, and for a MoE ``cfg`` any of sequence,
+    fsdp and tensor above 1, raise NotImplementedError naming their
+    ROADMAP row; heads or KV heads that ``tensor`` does not divide raise
+    ValueError. A mesh that passes must be a DeviceMesh."""
     if num_microbatches is not None:
         raise NotImplementedError(
             "num_microbatches (a pipelined step) is not ported yet "
-            f"(ROADMAP.md Queue A {_MESH_TODO['num_microbatches']})")
-    for axis in ("fsdp", "stage", "sequence", "tensor"):
-        n = mesh_axis_size(mesh, axis)
-        if n > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={n} is not ported yet (ROADMAP.md Queue A "
-                f"{_MESH_TODO[axis]})")
+            f"(ROADMAP.md Queue A {_PIPELINE})")
+    n = mesh_axis_size(mesh, "stage")
+    if n > 1:
+        raise NotImplementedError(
+            f"mesh axis stage={n} is not ported yet (ROADMAP.md Queue A {_PIPELINE})")
+    if cfg is not None:
+        for axis in ("fsdp", "sequence", "tensor"):
+            n = mesh_axis_size(mesh, axis)
+            if cfg.num_experts and n > 1:
+                raise NotImplementedError(
+                    f"a mixture-of-experts config under mesh axis {axis}={n} is not "
+                    f"ported yet (ROADMAP.md Queue A {_MOE_AXES})")
+        n = mesh_axis_size(mesh, "tensor")
+        if cfg.heads % n or cfg.kv_heads % n:
+            # contiguous head cuts keep the GQA map (query head h reads KV
+            # head h // (heads / kv_heads)) only if tensor divides both
+            raise ValueError(f"tensor={n} must divide heads ({cfg.heads}) and "
+                             f"kv_heads ({cfg.kv_heads})")
     if mesh is not None and not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh: a DeviceMesh from build_mesh, not {type(mesh).__name__}")
     return mesh_groups(mesh)
@@ -306,22 +333,31 @@ def _rope(x, positions, theta):
     return out.to(x.dtype)
 
 
-def _lora_delta(x, a, b, scale):
-    return torch.einsum("bsh,hr->bsr", x, a.to(x.dtype)) @ b.to(x.dtype) * scale
+def _lora_delta(x, a, b, scale, tensor=None):
+    """LoRA's ``x·A·B·scale``. Under tensor parallelism B is cut on its
+    output dim: ``x·A`` (replicated) enters the cut product through
+    ``sum_grads``, so every rank holds the whole grad of A and of x's
+    share through it."""
+    return sum_grads(torch.einsum("bsh,hr->bsr", x, a.to(x.dtype)), tensor) \
+        @ b.to(x.dtype) * scale
 
 
-def _qkv(cfg: TransformerConfig, y, p, lora, positions):
+def _qkv(cfg: TransformerConfig, y, p, lora, positions, groups: MeshGroups = NO_MESH):
     """Projections + LoRA + RoPE shared by _block and the cached block.
-    Returns q [B,S,nh,hd], k/v [B,S,nkv,hd]."""
+    Returns q [B,S,nh,hd], k/v [B,S,nkv,hd] (this rank's heads under
+    tensor parallelism)."""
     b, s, _ = y.shape
-    nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.hd
-    q = torch.einsum("bsh,hnd->bsnd", y, p["wq"].to(y.dtype))
-    k = torch.einsum("bsh,hnd->bsnd", y, p["wk"].to(y.dtype))
-    v = torch.einsum("bsh,hnd->bsnd", y, p["wv"].to(y.dtype))
+    hd = cfg.hd
+    yt = sum_grads(y, groups.tensor)
+    q = torch.einsum("bsh,hnd->bsnd", yt, p["wq"].to(y.dtype))
+    k = torch.einsum("bsh,hnd->bsnd", yt, p["wk"].to(y.dtype))
+    v = torch.einsum("bsh,hnd->bsnd", yt, p["wv"].to(y.dtype))
     if lora is not None:
         scale = cfg.lora_alpha / cfg.lora_rank
-        q = q + _lora_delta(y, lora["wq_a"], lora["wq_b"], scale).reshape(b, s, nh, hd)
-        v = v + _lora_delta(y, lora["wv_a"], lora["wv_b"], scale).reshape(b, s, nkv, hd)
+        q = q + _lora_delta(y, lora["wq_a"], lora["wq_b"], scale,
+                            groups.tensor).reshape(b, s, -1, hd)
+        v = v + _lora_delta(y, lora["wv_a"], lora["wv_b"], scale,
+                            groups.tensor).reshape(b, s, -1, hd)
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
@@ -426,48 +462,96 @@ def _moe_mlp(cfg: TransformerConfig, y, p, groups: MeshGroups = NO_MESH):
 
 def _mlp(cfg: TransformerConfig, x, p, lora, groups: MeshGroups = NO_MESH):
     """Second half of a block: x + SwiGLU(RMSNorm(x)), or the mixture of
-    experts for a MoE config (which, as in JAX, reads no LoRA adapter)."""
+    experts for a MoE config (which, as in JAX, reads no LoRA adapter).
+    Under tensor parallelism ``wi_*`` are cut on mlp (column-parallel)
+    and ``wo_mlp`` on its input (row-parallel, outputs summed)."""
     y = _rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     if cfg.num_experts:
         return x + _moe_mlp(cfg, y, p, groups)
-    gate = torch.einsum("bsh,hm->bsm", y, p["wi_gate"].to(y.dtype))
-    up = torch.einsum("bsh,hm->bsm", y, p["wi_up"].to(y.dtype))
+    yt = sum_grads(y, groups.tensor)
+    gate = torch.einsum("bsh,hm->bsm", yt, p["wi_gate"].to(y.dtype))
+    up = torch.einsum("bsh,hm->bsm", yt, p["wi_up"].to(y.dtype))
     if lora is not None:
         gate = gate + _lora_delta(y, lora["wi_a"], lora["wi_b"],
-                                  cfg.lora_alpha / cfg.lora_rank)
+                                  cfg.lora_alpha / cfg.lora_rank, groups.tensor)
     act = F.silu(gate) * up
-    return x + torch.einsum("bsm,mh->bsh", act, p["wo_mlp"].to(act.dtype))
+    out = torch.einsum("bsm,mh->bsh", act, p["wo_mlp"].to(act.dtype))
+    return x + sum_partials(out, groups.tensor)
 
 
-def _attention(cfg: TransformerConfig, x, p, lora, positions, attn_fn):
-    """First half of a block: x + attention(RMSNorm(x))."""
+def _attention(cfg: TransformerConfig, x, p, lora, positions, attn_fn,
+               groups: MeshGroups = NO_MESH):
+    """First half of a block: x + attention(RMSNorm(x)); under tensor
+    parallelism on this rank's heads, ``wo``'s partial outputs summed."""
     y = _rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, y, p, lora, positions)
+    q, k, v = _qkv(cfg, y, p, lora, positions, groups)
     attn = attn_fn(q, k, v)
-    return x + torch.einsum("bsnd,ndh->bsh", attn, p["wo"].to(attn.dtype))
+    out = torch.einsum("bsnd,ndh->bsh", attn, p["wo"].to(attn.dtype))
+    return x + sum_partials(out, groups.tensor)
+
+
+def _gathered(tree, axes, group, skip=()):
+    """One layer's leaves ``tree`` with each leaf the rules cut over fsdp
+    gathered whole along that dim; ``axes`` are ``param_axes``' entries
+    for the stacked leaves (their ``layers`` dim dropped here). A leaf
+    the model does not know, or in ``skip``, is left as it is."""
+    out = {}
+    for k, t in tree.items():
+        dim = None if k in skip else axis_dim(axes.get(k, ())[1:], "fsdp")
+        out[k] = t if dim is None else gather_dim(t, dim, group)
+    return out
 
 
 def _block(cfg: TransformerConfig, x, layer_params, lora_params, positions,
            attn_fn, groups: MeshGroups = NO_MESH):
-    """One decoder block. x [B,S,H_emb] in compute dtype."""
-    x = _attention(cfg, x, layer_params, lora_params, positions, attn_fn)
-    return _mlp(cfg, x, layer_params, lora_params, groups)
+    """One decoder block. x [B,S,H_emb] in compute dtype. The block's
+    leaves cut over fsdp are gathered first (again in the remat re-run,
+    so no gathered leaf outlives the block)."""
+    axes = param_axes(cfg)
+    lp = _gathered(layer_params, axes["blocks"], groups.fsdp)
+    lo = lora_params
+    if lo is not None:  # under MoE wi_a/wi_b are never read, as in JAX
+        lo = _gathered(lo, axes["lora"], groups.fsdp,
+                       ("wi_a", "wi_b") if cfg.num_experts else ())
+    x = _attention(cfg, x, lp, lo, positions, attn_fn, groups)
+    return _mlp(cfg, x, lp, lo, groups)
 
 
-def _default_attn(cfg: TransformerConfig):
+def _default_attn(cfg: TransformerConfig, groups: MeshGroups = NO_MESH):
     # no gqa_expand: the flash kernel maps query head h to KV head
     # h // (heads / kv_heads) itself, which is the same function
+    if groups.n_seq > 1:
+        def ring(q, k, v):
+            return ring_attention(q, k, v, groups.seq, causal=True)
+        return ring
+
     def attn(q, k, v):
         return flash_attention(q, k, v, causal=True)
     return attn
 
 
-def _logits(cfg: TransformerConfig, params: Params, x):
-    """Final norm + vocabulary projection: x [B,S,h] → logits [B,S,V]."""
-    x = _rms_norm(x, params["ln_f"], cfg.norm_eps)
+def _embed(cfg: TransformerConfig, params: Params, tokens, groups: MeshGroups):
+    """The embedding lookup, vocab-parallel under tensor parallelism: the
+    rank's rows of the table (gathered over fsdp on embed) serve the
+    tokens in its vocabulary range, the others read 0, and the rows are
+    summed over the tensor group."""
+    table = gather_dim(params["embed"], 1, groups.fsdp).to(cfg.dtype)
+    rows = table.shape[0]
+    local = tokens - groups.tensor_rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0.0)
+    return sum_partials(x, groups.tensor)
+
+
+def _logits(cfg: TransformerConfig, params: Params, x, groups: MeshGroups = NO_MESH):
+    """Final norm + vocabulary projection: x [B,S,h] → logits [B,S,V]
+    (this rank's vocabulary range under tensor parallelism)."""
+    x = sum_grads(_rms_norm(x, params["ln_f"], cfg.norm_eps), groups.tensor)
     w = params.get("unembed")
     if w is None:
-        w = params["embed"].T
+        w = gather_dim(params["embed"], 1, groups.fsdp).T
+    else:
+        w = gather_dim(w, 0, groups.fsdp)
     return torch.einsum("bsh,hv->bsv", x, w.to(x.dtype))
 
 
@@ -478,24 +562,28 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     """tokens [B,S] int → logits [B,S,V] (compute dtype).
 
     ``attn_fn(q,k,v)->o`` overrides attention. Under ``mesh`` (a
-    DeviceMesh), ``tokens`` are this rank's rows of the global batch
-    (``parallel.shard_batch``), ``params`` its shards, and the logits its
-    rows; see ``check_mesh`` for the meshes the port takes."""
+    DeviceMesh), ``tokens`` are this rank's part of the global batch
+    (``parallel.shard_batch``: rows, and a contiguous sequence shard),
+    ``params`` its shards, and the logits its rows, positions and, under
+    tensor parallelism, vocabulary range; see ``check_mesh`` for the
+    meshes the port takes. ``positions`` default to the shard's global
+    ones."""
     return _forward(cfg, params, tokens, positions, attn_fn,
-                    check_mesh(mesh, num_microbatches))
+                    check_mesh(mesh, num_microbatches, cfg))
 
 
 def _forward(cfg: TransformerConfig, params: Params, tokens, positions, attn_fn,
              groups: MeshGroups):
+    s = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    attn_fn = attn_fn or _default_attn(cfg)
+        positions = torch.arange(s, device=tokens.device) + groups.seq_rank * s
+    attn_fn = attn_fn or _default_attn(cfg, groups)
     # Full per-block remat, as the JAX package's jax.checkpoint: the
     # backward re-runs each block from its input. A selective policy that
     # kept the attention output would not help: the flash backward needs
     # the LSE, which only the re-run forward kernel produces.
     remat = cfg.remat and torch.is_grad_enabled()
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = _embed(cfg, params, tokens, groups)
     for i in range(cfg.layers):
         lp, lo = _layer(params, i)
         if remat:
@@ -503,7 +591,30 @@ def _forward(cfg: TransformerConfig, params: Params, tokens, positions, attn_fn,
                            use_reentrant=False, preserve_rng_state=False)
         else:
             x = _block(cfg, x, lp, lo, positions, attn_fn, groups)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, groups)
+
+
+def _next_tokens(tokens, mask, groups: MeshGroups):
+    """(targets, weight), both [B,S]: position p's target is token p+1 of
+    the whole sequence, weighted by the loss_mask there (1 without one).
+    A sequence shard's last target is the next shard's first token,
+    fetched by an all-gather of every shard's first column; the last
+    position of the whole sequence has no target (weight 0)."""
+    b = tokens.shape[0]
+    w = (torch.ones_like(tokens[:, 1:], dtype=torch.float32) if mask is None
+         else mask[:, 1:].float())
+    nxt_tok = torch.zeros_like(tokens[:, :1])
+    nxt_w = torch.zeros_like(w[:, :1])
+    if groups.seq is not None:
+        # float64 holds both a token id and a mask weight exactly
+        first = torch.stack([tokens[:, 0].double(),
+                             torch.ones(b, dtype=torch.float64, device=tokens.device)
+                             if mask is None else mask[:, 0].double()])
+        heads = gather_rows(first[None], groups.seq)  # [n_seq, 2, B]
+        if groups.seq_rank + 1 < groups.n_seq:
+            nxt_tok = heads[groups.seq_rank + 1, 0, :, None].to(tokens.dtype)
+            nxt_w = heads[groups.seq_rank + 1, 1, :, None].float()
+    return (torch.cat([tokens[:, 1:], nxt_tok], 1).long(), torch.cat([w, nxt_w], 1))
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
@@ -514,31 +625,47 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
 
     The loss is the sum of the nll over the kept targets divided by
     their count, ``tokens``. Under ``mesh`` ``batch`` holds this rank's
-    rows (as ``forward``'s tokens): the count is the global one (the mask
-    summed over the batch's ranks, as JAX divides by the global mask
-    sum), the metrics are the global values, the same on every rank, and
-    ``loss`` is this rank's share of the global loss (the shares sum to
-    it over the batch's ranks), the value to differentiate."""
-    groups = check_mesh(mesh, num_microbatches)
+    part (as ``forward``'s tokens): the count is the global one (the mask
+    summed over the ranks of other tokens, as JAX divides by the global
+    mask sum), the metrics are the global values, the same on every rank,
+    and ``loss`` is this rank's share of the global loss (the shares sum
+    to it over those ranks), the value to differentiate. Under tensor
+    parallelism the log-sum-exp, the target logit and the argmax (ties to
+    the lowest index, as ``torch.argmax`` over the whole vocabulary) are
+    reduced over the tensor group."""
+    groups = check_mesh(mesh, num_microbatches, cfg)
     tokens = batch["tokens"]
-    # Forward over the FULL sequence (as the JAX package, whose sequence
-    # shards must keep S divisible by the mesh axis); shift at the logits.
-    logits = _forward(cfg, params, tokens, None, attn_fn, groups)[:, :-1].float()
-    targets = tokens[:, 1:].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt_logit = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
-    nll = logz - tgt_logit
-    acc = (logits.argmax(-1) == targets).float()
     mask = batch.get("loss_mask")
+    # Forward over the whole shard (as the JAX package, whose sequence
+    # shards must keep S divisible by the mesh axis); shift at the targets.
+    logits = _forward(cfg, params, tokens, None, attn_fn, groups).float()
+    targets, weight = _next_tokens(tokens, mask, groups)
+    vocab = logits.shape[-1]
+    first = groups.tensor_rank * vocab
+    with torch.no_grad():
+        top = logits.amax(-1)
+        m = max_over(top, groups.tensor)
+        # the lowest index that holds the global max (vocab * n if none here)
+        cand = torch.where(top == m, logits.argmax(-1) + first, vocab * groups.n_tensor)
+        pred = min_over(cand, groups.tensor)
+    local = targets - first
+    mine = (local >= 0) & (local < vocab)
+    tgt = torch.take_along_dim(logits, local.clamp(0, vocab - 1)[..., None], dim=-1)[..., 0]
+    # (logits - m).exp_(): one [B,S,V] temporary, as torch.logsumexp makes
+    parts = torch.stack([(logits - m[..., None]).exp_().sum(-1),
+                         torch.where(mine, tgt, 0.0)])
+    sumexp, tgt_logit = sum_partials(parts, groups.tensor).unbind(0)
+    nll = (torch.log(sumexp) + m - tgt_logit) * weight
+    acc = (pred == targets).float() * weight
+    b, s = tokens.shape
     if mask is not None:
-        mask = mask[:, 1:].float()
-        nll, acc = nll * mask, acc * mask
-        denom = sum_partials(mask.sum(), groups.batch).clamp_min(1.0)
+        denom = sum_partials(weight.sum(), groups.tokens).clamp_min(1.0)
     else:
         # a fill, not a host-to-device copy (which would sync the stream)
-        denom = torch.full((), float(nll.numel() * groups.n_batch), device=nll.device)
+        denom = torch.full((), float(groups.n_batch * b * (groups.n_seq * s - 1)),
+                           device=nll.device)
     nll_sum = nll.sum()
-    sums = sum_partials(torch.stack([nll_sum.detach(), acc.sum()]), groups.batch)
+    sums = sum_partials(torch.stack([nll_sum.detach(), acc.sum()]), groups.tokens)
     return nll_sum / denom, {"loss": sums[0] / denom, "accuracy": sums[1] / denom,
                              "tokens": denom}
 

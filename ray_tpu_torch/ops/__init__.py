@@ -9,6 +9,7 @@ from ray_tpu_torch.ops.attention import (
     gqa_expand,
     mha_reference,
 )
+from ray_tpu_torch.ops.ring_attention import ring_attention
 
 __all__ = [
     "mha_reference",
@@ -17,4 +18,5 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_bwd",
     "gqa_expand",
+    "ring_attention",
 ]

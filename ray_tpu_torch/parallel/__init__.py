@@ -2,9 +2,8 @@
 collectives of the sharded step (PyTorch port of ray_tpu.parallel).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the JAX
-package's seven axis names. This slice runs the data axes (replica,
-data) and the expert axis; multi-host bootstrap, FSDP/TP shardings and
-``constrain`` come with ROADMAP.md Queue A items 3 and 7.
+package's seven axis names. The port runs every axis but ``stage``
+(ROADMAP.md Queue A item 4); multi-host bootstrap comes with item 7.
 """
 
 from ray_tpu_torch.parallel.collectives import (

@@ -2,26 +2,36 @@
 a count of calls by kind.
 
 The JAX package's sharded step is one GSPMD program: XLA derives its
-collectives from the shardings. The port writes them out. At
-``MeshSpec(data=d, expert=e)`` the batch is cut over the data group and
-replicated over the expert group, and the experts are cut over the
-expert group (ray_tpu/parallel/sharding.py:27), so a MoE layer
+collectives from the shardings. The port writes them out, as Megatron
+and ZeRO-3 do, with three autograd-aware primitives and a P2P ring:
 
-- gathers its data group's tokens (``gather_rows``), so that routing,
-  capacity and slot order run over the global batch;
-- runs its E/e local experts on their slots, the input entering through
-  ``sum_grads`` (the local experts' share of its grad is summed over the
-  expert group in the backward);
-- sums the expert outputs over the expert group (``sum_partials``) and
-  keeps its own rows.
+- ``gather_rows`` / ``gather_dim``: all-gather; backward reduce-scatter.
+  FSDP: a leaf cut over ``fsdp`` on its ``embed`` dim is gathered before
+  the layer uses it, and its grad comes back summed over the fsdp group,
+  each rank keeping its shard. MoE: a layer gathers its data group's
+  tokens, so that routing, capacity and slot order run over the global
+  batch.
+- ``sum_partials``: all-reduce, identity backward. The partial products
+  of a row-parallel projection (``wo``, ``wo_mlp`` cut on their input
+  dim over ``tensor``), of a vocab-parallel embedding and of the expert
+  group's outputs, summed into a value every member then holds whole.
+- ``sum_grads``: identity, all-reduce backward. A value replicated over
+  the group that enters a column-parallel product (``wq``/``wk``/``wv``/
+  ``wi_*`` cut on their output dim, the unembedding cut over the
+  vocabulary, the local experts): each member's share of its grad is
+  summed, so every member holds the whole grad.
+- ``exchange``: one step of a ring (``batch_isend_irecv``): send to the
+  next rank of the group, receive from the previous (ring attention,
+  ray_tpu_torch/ops/ring_attention.py).
 
-Every rank then holds the whole grad of each replicated value, and each
-rank of an expert group the same one: the ranks of an expert group
-compute the same tokens after the combine, and counting that replicated
-work once is what ``sum_partials``'s identity backward and
-``sum_grads``'s identity forward do (an all-reduce whose backward is an
-all-reduce too would multiply the grads by e). Parameter grads are then
-summed over the data group (``all_reduce_``).
+The ranks of a tensor or expert group compute the same values outside
+the cut products. Counting that replicated work once is what
+``sum_partials``'s identity backward and ``sum_grads``'s identity forward
+do (an all-reduce whose backward all-reduces too would multiply the
+grads by the group size). Parameter grads are then summed over the
+ranks that hold other tokens (``all_reduce_``): over (replica, data,
+sequence) for a leaf cut over fsdp, whose reduce-scatter already summed
+the fsdp group, and over (replica, data, fsdp, sequence) for the rest.
 
 A collective over a group of one rank still runs (a copy): the mesh
 path issues the same calls whatever the sizes. ``group`` None means no
@@ -42,12 +52,13 @@ from torch.distributed.device_mesh import DeviceMesh
 
 # calls issued since the last reset_collectives(), by kind
 _COUNTS: collections.Counter = collections.Counter()
-KINDS = ("all_gather", "reduce_scatter", "all_reduce")
+KINDS = ("all_gather", "reduce_scatter", "all_reduce", "send")
 
 
 def read_collectives() -> Dict[str, int]:
     """Collective calls issued since the last ``reset_collectives``, by
-    kind (forward and backward alike)."""
+    kind (forward and backward alike); ``send`` counts the tensors sent
+    point to point."""
     return {k: _COUNTS[k] for k in KINDS}
 
 
@@ -58,9 +69,21 @@ def reset_collectives() -> None:
 @dataclasses.dataclass(frozen=True)
 class MeshGroups:
     """The process groups of a mesh the sharded step runs collectives on,
-    with this rank's place in each: ``batch`` over the axes the batch is
-    cut on (replica, data, fsdp), ``expert`` over the expert axis. None
-    (with size 1, rank 0) means no mesh."""
+    with the sizes ``n_*`` and this rank's places ``*_rank`` the model
+    reads. None (size 1, rank 0) means no mesh.
+
+    - ``batch``: the axes the batch rows are cut on (replica, data, fsdp);
+    - ``expert``, ``fsdp``, ``tensor``, ``seq``: one mesh axis each
+      (``seq`` is the sequence axis);
+    - ``tokens``: every axis the tokens are cut on (replica, data, fsdp,
+      sequence): the loss's sums, and the grads of leaves not cut over
+      fsdp;
+    - ``peers``: (replica, data, sequence), the ranks that hold the same
+      fsdp shard of a leaf but other tokens: the grads of leaves cut over
+      fsdp;
+    - ``model``: the axes a leaf may be cut on (fsdp, expert, tensor):
+      the squared norms of the grad shards.
+    """
 
     batch: Optional[dist.ProcessGroup] = None
     n_batch: int = 1
@@ -68,10 +91,24 @@ class MeshGroups:
     expert: Optional[dist.ProcessGroup] = None
     n_expert: int = 1
     expert_rank: int = 0
+    fsdp: Optional[dist.ProcessGroup] = None
+    tensor: Optional[dist.ProcessGroup] = None
+    n_tensor: int = 1
+    tensor_rank: int = 0
+    seq: Optional[dist.ProcessGroup] = None
+    n_seq: int = 1
+    seq_rank: int = 0
+    tokens: Optional[dist.ProcessGroup] = None
+    peers: Optional[dist.ProcessGroup] = None
+    model: Optional[dist.ProcessGroup] = None
+    n_model: int = 1
 
 
 NO_MESH = MeshGroups()
-_BATCH_AXES = ("replica", "data", "fsdp")
+_AXES = {"batch": ("replica", "data", "fsdp"), "expert": ("expert",), "fsdp": ("fsdp",),
+         "tensor": ("tensor",), "seq": ("sequence",),
+         "tokens": ("replica", "data", "fsdp", "sequence"),
+         "peers": ("replica", "data", "sequence"), "model": ("fsdp", "expert", "tensor")}
 _GROUPS: Dict[int, MeshGroups] = {}
 
 
@@ -103,37 +140,62 @@ def mesh_groups(mesh: Optional[DeviceMesh]) -> MeshGroups:
         return NO_MESH
     key = id(mesh)
     if key not in _GROUPS:
-        batch, expert = _group(mesh, _BATCH_AXES), _group(mesh, ("expert",))
-        _GROUPS[key] = MeshGroups(batch, dist.get_world_size(batch), dist.get_rank(batch),
-                                  expert, dist.get_world_size(expert), dist.get_rank(expert))
+        kw = {}
+        for name, axes in _AXES.items():
+            g = _group(mesh, axes)
+            kw[name] = g
+            if f"n_{name}" in MeshGroups.__dataclass_fields__:
+                kw[f"n_{name}"] = dist.get_world_size(g)
+            if f"{name}_rank" in MeshGroups.__dataclass_fields__:
+                kw[f"{name}_rank"] = dist.get_rank(g)
+        _GROUPS[key] = MeshGroups(**kw)
         weakref.finalize(mesh, _GROUPS.pop, key, None)
     return _GROUPS[key]
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.contiguous().clone()
     _COUNTS["all_reduce"] += 1
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
-class _GatherRows(torch.autograd.Function):
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """[n * rows, ...]: the group's ``x`` along dim 0, in group-rank order."""
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
+    _COUNTS["all_gather"] += 1
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _reduce_scatter(g: torch.Tensor, group) -> torch.Tensor:
+    """The group's ``g`` [n * rows, ...] summed, this rank's rows kept."""
+    out = g.new_empty((g.shape[0] // dist.get_world_size(group), *g.shape[1:]))
+    _COUNTS["reduce_scatter"] += 1
+    dist.reduce_scatter_tensor(out, g.contiguous(), group=group)
+    return out
+
+
+class _GatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        # the shards stacked on a new dim 0, then laid out along ``dim`` in
+        # a contiguous tensor of the whole leaf's layout (a view for dim 0)
         n = dist.get_world_size(group)
-        out = x.new_empty((n * x.shape[0], *x.shape[1:]))
-        _COUNTS["all_gather"] += 1
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-        return out
+        shape = list(x.shape)
+        shape[dim] *= n
+        return _all_gather(x, group).view(n, *x.shape).movedim(0, dim).reshape(shape)
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        out = g.new_empty((g.shape[0] // n, *g.shape[1:]))
-        _COUNTS["reduce_scatter"] += 1
-        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
-        return out, None
+        dim, n = ctx.dim, dist.get_world_size(ctx.group)
+        shape = list(g.shape)
+        shard = shape[:dim] + [shape[dim] // n] + shape[dim + 1:]
+        shape[dim:dim + 1] = [n, shape[dim] // n]
+        # each rank's part of the grad stacked on dim 0, as forward gathered it
+        parts = g.reshape(shape).movedim(dim, 0).reshape(n * shard[0], *shard[1:])
+        return _reduce_scatter(parts, ctx.group), None, None
 
 
 class _SumPartials(torch.autograd.Function):
@@ -157,11 +219,27 @@ class _SumGrads(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in group-rank order, a
+    contiguous tensor. Backward: the grads summed over the group, each
+    rank keeping its own part (reduce-scatter), the adjoint of the
+    gather."""
+    return x if group is None else _GatherDim.apply(x, dim, group)
+
+
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """The group's ``x`` concatenated along dim 0 in group-rank order.
-    Backward: the grads summed over the group, each rank keeping its own
-    rows (reduce-scatter), the adjoint of the gather."""
-    return x if group is None else _GatherRows.apply(x, group)
+    """``gather_dim`` along dim 0."""
+    return gather_dim(x, 0, group)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of the group's ``x`` (all-reduce), no grad."""
+    return x if group is None else _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
+
+
+def min_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise min of the group's ``x`` (all-reduce), no grad."""
+    return x if group is None else _all_reduce(x.detach(), group, dist.ReduceOp.MIN)
 
 
 def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
@@ -174,8 +252,10 @@ def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
 def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` (replicated over the group) used for a partial result.
     Backward: the members' grads summed (all-reduce), so each holds the
-    whole grad of ``x``."""
-    return x if group is None else _SumGrads.apply(x, group)
+    whole grad of ``x``. Without a group, a view of ``x``: the graph then
+    has the same shape as under a mesh, so grads that reach ``x`` by
+    several paths are summed in the same order (bit for bit)."""
+    return x.view_as(x) if group is None else _SumGrads.apply(x, group)
 
 
 def all_reduce_(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
@@ -193,3 +273,17 @@ def all_reduce_(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     for w in works:
         w.wait()
     return tensors
+
+
+def exchange(send: List[torch.Tensor], recv: List[torch.Tensor], group) -> list:
+    """One step of a ring over ``group``: each of ``send`` (contiguous) to
+    the next rank of the group, each of ``recv`` filled from the previous
+    one, all posted at once (``batch_isend_irecv``). Returns the requests
+    to wait on."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prev = dist.get_global_rank(group, (me - 1) % n)
+    ops = [dist.P2POp(dist.isend, t, nxt, group) for t in send]
+    ops += [dist.P2POp(dist.irecv, t, prev, group) for t in recv]
+    _COUNTS["send"] += len(send)
+    return dist.batch_isend_irecv(ops)

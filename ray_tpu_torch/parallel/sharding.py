@@ -4,16 +4,17 @@ Model code names each dim of a leaf by a *logical* axis ("batch",
 "embed", "expert", ...); a rule table maps logical names to mesh axes.
 ``spec_for`` gives the same entries as the JAX package's
 ``PartitionSpec``, as a tuple. Where JAX hands the spec to GSPMD, the
-port cuts each rank's shard itself: ``shard_batch`` for the batch,
-``local_shard`` / ``shard_tree`` for params and optimizer moments.
-
-This slice shards the batch over (replica, data, fsdp) and leaves over
-``expert``; a leaf's spec that names any other mesh axis above 1 raises
-(FSDP and TP: ROADMAP.md Queue A item 3).
+port cuts each rank's shard itself: ``shard_batch`` for the batch (rows and
+sequence), ``local_shard`` / ``shard_tree`` for params and optimizer
+moments, cut over ``fsdp``, ``tensor`` and ``expert``; a leaf's spec
+that names ``stage`` above 1 raises (ROADMAP.md Queue A item 4). The
+model's collectives (ray_tpu_torch/models/transformer.py) assume the
+placement of ``DEFAULT_RULES``; ``check_rules`` refuses other rules.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 from torch.distributed.device_mesh import DeviceMesh
@@ -42,8 +43,26 @@ DEFAULT_RULES: Rules = {
 }
 
 # mesh axes a leaf's dim may be cut over in this slice
-_LEAF_AXES = ("expert",)
-_LEAF_TODO = "ROADMAP.md Queue A item 3 (FSDP and tensor parallelism)"
+_LEAF_AXES = ("fsdp", "tensor", "expert")
+_LEAF_TODO = "ROADMAP.md Queue A item 4 (pipeline)"
+
+
+def check_rules(rules: Optional[Rules]) -> None:
+    """Raise NotImplementedError for rules other than ``DEFAULT_RULES``:
+    the sharded step's collectives are written for its placement."""
+    if rules is not None and dict(rules) != DEFAULT_RULES:
+        raise NotImplementedError(
+            "the port's sharded step runs DEFAULT_RULES' placement only")
+
+
+def axis_dim(logical_axes: Sequence[Optional[str]], mesh_axis: str,
+             rules: Optional[Rules] = None) -> Optional[int]:
+    """The dim of a leaf with ``logical_axes`` that the rules cut over
+    ``mesh_axis`` (whatever its size), or None."""
+    for dim, entry in enumerate(spec_for(logical_axes, rules)):
+        if entry == mesh_axis or (isinstance(entry, tuple) and mesh_axis in entry):
+            return dim
+    return None
 
 
 def spec_for(logical_axes: Sequence[Optional[str]], rules: Optional[Rules] = None,
@@ -134,22 +153,32 @@ def shard_tree(mesh: Optional[DeviceMesh], tree: Dict[str, Any], axes: Dict[str,
 
 def shard_batch(mesh: Optional[DeviceMesh], batch: Dict[str, Any],
                 rules: Optional[Rules] = None) -> Dict[str, Any]:
-    """This rank's rows of a global batch (a dict of tensors, leading dim
-    = batch): the batch dim is cut over the mesh axes the ``batch`` rule
-    names ((replica, data, fsdp) by default), as JAX's ``shard_batch``
-    places it. The global batch itself when ``mesh`` is None."""
+    """This rank's part of a global batch (a dict of tensors [B, S, ...]
+    or [B]): the batch dim cut over the mesh axes the ``batch`` rule
+    names ((replica, data, fsdp) by default) and the sequence dim over
+    ``seq``'s (sequence), as JAX's ``batch_sharding`` places them. The
+    global batch itself when ``mesh`` is None."""
     if mesh is None:
         return batch
-    spec = spec_for(("batch",), rules, mesh)
-    if not spec:
-        return batch
-    return {k: _cut(v, 0, mesh, spec[0]) if v.dim() else v for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        for dim, name in enumerate(("batch", "seq")[:v.dim()]):
+            entry = spec_for((name,), rules, mesh)
+            if entry:
+                v = _cut(v, dim, mesh, entry[0])
+        out[k] = v
+    return out
 
 
-def is_sharded(spec: Tuple) -> bool:
-    """Whether a spec from ``spec_for`` cuts any dim."""
-    return any(e is not None for e in spec)
+def shard_count(mesh: Optional[DeviceMesh], logical_axes: Sequence[Optional[str]],
+                rules: Optional[Rules] = None) -> int:
+    """The number of shards a leaf with ``logical_axes`` is cut into on
+    ``mesh`` (1 for None)."""
+    if mesh is None:
+        return 1
+    return math.prod(_shard(mesh, e)[1] for e in spec_for(logical_axes, rules, mesh)
+                     if e is not None)
 
 
 __all__ = ["DEFAULT_RULES", "Rules", "spec_for", "local_shard", "shard_tree",
-           "shard_batch", "is_sharded"]
+           "shard_batch", "shard_count", "axis_dim", "check_rules"]

@@ -1,13 +1,14 @@
 """ray_tpu_torch.train — the train step on one device or over a mesh of
-the data and expert axes (PyTorch port of ray_tpu.train.step). Trainer,
-checkpoint, FSDP/TP and pipelined steps come in later slices (ROADMAP.md
-Queue A)."""
+every axis but ``stage`` (PyTorch port of ray_tpu.train.step). Trainer,
+checkpoint and pipelined steps come in later slices (ROADMAP.md Queue
+A)."""
 
 from ray_tpu_torch.train.step import (
     AdamW,
     batch_sharding,
     default_optimizer,
     init_state,
+    make_attn_fn,
     make_eval_step,
     make_train_step,
     state_shardings,
@@ -19,6 +20,7 @@ __all__ = [
     "batch_sharding",
     "default_optimizer",
     "init_state",
+    "make_attn_fn",
     "make_eval_step",
     "make_train_step",
     "state_shardings",

@@ -28,17 +28,24 @@ views of the stack in place.
 
 Under a ``mesh`` (ray_tpu_torch.parallel.build_mesh; JAX's positional
 order: ``init_state(cfg, opt, mesh)``, ``make_train_step(cfg, opt, mesh,
-rules)``) each rank holds its shard of the state: expert leaves and their
-moments cut over ``expert`` (``state_shardings``), every other leaf
-whole. ``run`` takes the global batch, as JAX's does, and keeps this
-rank's rows (``batch_sharding``). The grads are summed over the data
-group, one in-place all-reduce a leaf; ``grad_norm`` and the clip's norm
-are over the whole logical grads (the squares of expert shards summed
-over the expert group); AdamW updates the local shards. The numbers are
+rules)``) each rank holds its shard of the state (``state_shardings``):
+each leaf and its moments cut over ``fsdp`` on its embed dim, over
+``tensor`` on heads, kv_heads, mlp or vocab, and expert leaves over
+``expert``. ``run`` takes the global batch, as JAX's does, and keeps this
+rank's rows and sequence shard (``batch_sharding``); attention over a
+sequence axis above 1 is ring attention (``make_attn_fn``). The grads
+come out of the backward as shards (a leaf cut over fsdp: summed over
+the fsdp group by its gather's reduce-scatter) and are summed in place,
+one all-reduce a leaf, over the ranks that hold other tokens: (replica,
+data, sequence) for a leaf cut over fsdp, (replica, data, fsdp,
+sequence) for the rest, never twice over fsdp. ``grad_norm`` and the
+clip's norm are over the whole logical grads: each shard's squared norm
+divided by the number of ranks that hold that shard, summed over
+(fsdp, expert, tensor). AdamW updates the local shards. The numbers are
 those of the single-device step on the global batch. The mesh path runs
 its collectives whatever the axes' sizes, so a mesh of one rank runs it
-too. Axes the port does not take yet raise NotImplementedError naming
-their ROADMAP item (ray_tpu_torch/models/transformer.py ``check_mesh``).
+too. What the port does not take yet raises NotImplementedError naming
+its ROADMAP row (ray_tpu_torch/models/transformer.py ``check_mesh``).
 """
 
 from __future__ import annotations
@@ -49,13 +56,13 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from ray_tpu_torch.models.transformer import (
-    Params, TransformerConfig, check_mesh, init_params, loss_fn, param_axes,
-    param_shapes, trainable_leaves,
+    Params, TransformerConfig, _default_attn, check_mesh, init_params, loss_fn,
+    param_axes, param_shapes, trainable_leaves,
 )
 from ray_tpu_torch.parallel.collectives import all_reduce_, sum_partials
 from ray_tpu_torch.parallel.mesh import mesh_device
 from ray_tpu_torch.parallel.sharding import (
-    Rules, is_sharded, shard_batch, shard_tree, spec_for,
+    Rules, axis_dim, check_rules, shard_batch, shard_count, shard_tree, spec_for,
 )
 
 TrainState = Dict[str, Any]
@@ -113,9 +120,10 @@ def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
     leaf a detached leaf that requires grad (a stacked leaf as its
     per-layer leaves, sharing its storage); ``grads`` are their grads in
     ``_flatten(tree)`` order, the order of ``_units(params)``. Under
-    ``mesh`` (``batch`` this rank's rows) the grads are summed over the
-    data group in place: each rank holds the grads of the global loss,
-    expert leaves' for its shard."""
+    ``mesh`` (``batch`` this rank's part) the grads are summed in place
+    over the ranks that hold other tokens: each rank holds the grads of
+    the global loss, for its shard of each leaf."""
+    groups = check_mesh(mesh, cfg=cfg)
     tree = _per_layer(params, torch.Tensor.detach)
     leaves = _flatten(tree)
     for t in leaves:
@@ -127,12 +135,22 @@ def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
     # zero grad jax.value_and_grad gives them. Any other unread leaf is a
     # fault (an adapter or weight that came unwired).
     unread = ("lora/wi_a[", "lora/wi_b[") if cfg.num_experts else ()
-    for i, name in enumerate(_paths(tree)):
+    names = _paths(tree)
+    for i, name in enumerate(names):
         if grads[i] is None:
             if not name.startswith(unread):
                 raise ValueError(f"params leaf {name} is not read by the loss")
             grads[i] = torch.zeros_like(leaves[i])
-    grads = all_reduce_(grads, check_mesh(mesh).batch)
+        # one layout for every path: a grad's norm sums in layout order, and
+        # under a mesh each grad comes out of a collective contiguous
+        grads[i] = grads[i].contiguous()
+    # a leaf cut over fsdp comes back summed over the fsdp group already
+    axes = param_axes(cfg)
+    cut = [axis_dim(_leaf(axes, n), "fsdp") is not None for n in names]
+    for fsdp, group in ((True, groups.peers), (False, groups.tokens)):
+        idx = [i for i, c in enumerate(cut) if c == fsdp]
+        for i, g in zip(idx, all_reduce_([grads[i] for i in idx], group)):
+            grads[i] = g
     metrics = {k: v.detach() for k, v in metrics.items()}
     return metrics["loss"], metrics, tree, grads
 
@@ -144,8 +162,9 @@ def value_and_grad(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
     (stacked leaves stacked again), as ``jax.value_and_grad(loss_fn,
     has_aux=True)`` gives them. Under ``mesh``, ``batch`` is the global
     batch (as the step's) and ``params`` this rank's shards: the metrics
-    and grads are the global loss's, an expert leaf's grad its shard. For
+    and grads are the global loss's, a cut leaf's grad its shard. For
     tests and checks; the step itself keeps the per-layer grads."""
+    check_rules(rules)
     loss, metrics, tree, grads = _flat_grads(
         cfg, params, shard_batch(mesh, batch, rules), attn_fn, mesh)
     it = iter(grads)  # grads come in _flatten(tree) order
@@ -243,7 +262,8 @@ def state_shardings(cfg: TransformerConfig, optimizer: AdamW, mesh,
     entries (as JAX's PartitionSpecs): the params' from ``param_axes``,
     Adam's moments as their params', () for the scalars. A leaf whose
     spec is not () holds this rank's shard."""
-    check_mesh(mesh)
+    check_mesh(mesh, cfg=cfg)
+    check_rules(rules)
     specs = _map(param_axes(cfg), lambda axes: spec_for(axes, rules, mesh))
     train = trainable_leaves(cfg, specs)
     return {"params": specs, "opt_state": {"mu": train, "nu": train, "count": ()},
@@ -252,8 +272,20 @@ def state_shardings(cfg: TransformerConfig, optimizer: AdamW, mesh,
 
 def batch_sharding(mesh, rules: Optional[Rules] = None) -> Tuple:
     """tokens [B, S] → the spec of (batch, seq): the batch cut over the
-    data axes."""
+    data axes, the sequence over ``sequence``."""
     return spec_for(("batch", "seq"), rules, mesh)
+
+
+def make_attn_fn(cfg: TransformerConfig, mesh, rules: Optional[Rules] = None
+                 ) -> Optional[Callable]:
+    """Ring attention over the mesh's sequence group when the sequence
+    axis is above 1; None (the flash kernels on the whole sequence)
+    otherwise. K/V go round the ring un-expanded: the kernels read each
+    query head's KV head, where JAX's calls ``gqa_expand`` first. A mesh
+    with ``stage`` above 1 raises (ROADMAP.md Queue A item 4)."""
+    check_rules(rules)
+    groups = check_mesh(mesh, cfg=cfg)
+    return _default_attn(cfg, groups) if groups.n_seq > 1 else None
 
 
 def _map(tree, fn):
@@ -268,7 +300,8 @@ def init_state(cfg: TransformerConfig, optimizer: AdamW, mesh=None,
     the card). Under ``mesh`` each rank draws the whole init and keeps its
     shard (``state_shardings``), so the sharded state is the single-device
     one cut."""
-    check_mesh(mesh)
+    check_mesh(mesh, cfg=cfg)
+    check_rules(rules)
     device = mesh_device(mesh, device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
                          device)
@@ -297,20 +330,24 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None,
     """(state, batch) → (state, metrics), on one device or over ``mesh``
     (``batch`` the global batch). The state is updated in place and
     returned; with ``donate=False`` a copy of it is, and the input stays
-    as it was. ``attn_fn(q,k,v)`` overrides attention (default: the flash
-    kernels)."""
-    expert = check_mesh(mesh, num_microbatches).expert
+    as it was. ``attn_fn(q,k,v)`` overrides attention (default:
+    ``make_attn_fn``'s, the flash kernels or the ring over them)."""
+    groups = check_mesh(mesh, num_microbatches, cfg)
+    check_rules(rules)
     device = mesh_device(mesh, device)
-    # per unit (the order of _flatten(tree)): whether it trains, and
-    # whether it holds a shard cut over the mesh (an expert leaf), whose
-    # squared norm is summed over the expert group
+    attn_fn = attn_fn or make_attn_fn(cfg, mesh, rules)
+    # per unit (the order of _flatten(tree)): whether it trains, and how
+    # many ranks of the (fsdp, expert, tensor) group hold the same shard
+    # of it: its squared norm over that count, summed over the group, is
+    # the whole leaf's
     meta = _map(param_shapes(cfg), lambda sf: torch.empty(sf[0], device="meta"))
     names = _paths(_per_layer(meta))
     trains = set(_paths(_per_layer(trainable_leaves(cfg, meta))))
     keep_idx = [i for i, n in enumerate(names) if n in trains]
     keep = torch.tensor(keep_idx, device=device)
-    specs = _map(param_axes(cfg), lambda axes: spec_for(axes, rules, mesh))
-    cut = torch.tensor([is_sharded(_leaf(specs, n)) for n in names], device=device)
+    axes = param_axes(cfg)
+    holders = torch.tensor([groups.n_model / shard_count(mesh, _leaf(axes, n), rules)
+                            for n in names], device=device)
 
     def run(state: TrainState, batch: Dict[str, Any]):
         if not donate:
@@ -319,8 +356,8 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None,
         _, metrics, tree, grads = _flat_grads(
             cfg, params, shard_batch(mesh, _batch_to(batch, device), rules), attn_fn, mesh)
         sq = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)).square()
-        if expert is not None:
-            sq = torch.where(cut, sum_partials(torch.where(cut, sq, 0.0), expert), sq)
+        if groups.model is not None:
+            sq = sum_partials(sq / holders, groups.model)
         metrics["grad_norm"] = sq.sum().sqrt()
         optimizer.update_(_units(trainable_leaves(cfg, params)),
                           [grads[i] for i in keep_idx], state["opt_state"],
@@ -343,13 +380,13 @@ def make_eval_step(cfg: TransformerConfig, mesh=None, rules: Optional[Rules] = N
                    *, device=None) -> Callable:
     """(params, batch) → metrics, no grad; under ``mesh`` ``batch`` is the
     global batch and the metrics are global."""
-    check_mesh(mesh)
+    attn = make_attn_fn(cfg, mesh, rules)
     device = mesh_device(mesh, device)
 
     @torch.no_grad()
     def run(params: Params, batch: Dict[str, Any]):
         _, metrics = loss_fn(cfg, params, shard_batch(mesh, _batch_to(batch, device), rules),
-                             mesh=mesh)
+                             attn_fn=attn, mesh=mesh)
         return metrics
 
     return run

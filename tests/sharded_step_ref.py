@@ -22,6 +22,7 @@ from ray_tpu.train import step as JS
 from ray_tpu_torch import train as S
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.parallel import AXIS_ORDER, spec_for
 
 ATOL, GRAD_ATOL = 2e-5, 5e-5
 LR, STEPS, WORLD = torch_ranks.LR, 3, 8
@@ -47,6 +48,21 @@ def np_state(jstate, lora=False):
     return {"params": jax.tree.map(np.array, jstate["params"]), "mu": mu, "nu": nu,
             "count": np.asarray(optax.tree_utils.tree_get(opt, "count")),
             "step": np.asarray(jstate["step"])}
+
+
+def port_np_state(tcfg, seed=0):
+    """The port's own init (init_state on the CPU) as state_from_jax
+    takes a state: numpy params, moments of the trainable leaves, count
+    and step."""
+    st = S.init_state(tcfg, S.default_optimizer(tcfg, lr=LR), seed=seed, device="cpu")
+
+    def np_tree(t):
+        return {k: np_tree(v) if isinstance(v, dict) else v.numpy() for k, v in t.items()}
+
+    opt = st["opt_state"]
+    return {"params": np_tree(st["params"]), "mu": np_tree(opt["mu"]),
+            "nu": np_tree(opt["nu"]), "count": opt["count"].numpy(),
+            "step": st["step"].numpy()}
 
 
 def items(tree, prefix=""):
@@ -132,6 +148,25 @@ def check_params(ranks, jax_params, shard, steps=STEPS):
             assert params_close(a, b, steps), (rank, path)
 
 
+def check_params_of_leaves(ranks, jax_params, shard, steps=STEPS):
+    """``check_params`` for leaves cut into small shards: each rank's
+    shard has JAX's shape, every element is within the per-element
+    bounds of ``params_close``, and the share of elements at
+    reassociation noise is taken over all ranks' shards of a leaf
+    together (the whole leaf, as tests/test_torch_train.py counts it),
+    not over each shard, where a few such elements of a 2,048-element
+    shard would exceed it."""
+    pairs = {}
+    for rank, r in enumerate(ranks):
+        for path, a in items(r["params"]):
+            b = shard(path, jax_params[path], rank)
+            assert a.shape == b.shape, (rank, path)
+            pairs.setdefault(path, []).append((a.ravel(), b.ravel()))
+    for path, ab in pairs.items():
+        a, b = (np.concatenate(x) for x in zip(*ab))
+        assert params_close(a, b, steps), path
+
+
 def check_grads(ranks, single, shard):
     """Every rank's global loss and grads (value_and_grad under the mesh)
     against ``shard(path, whole, rank)`` of the single-device ones."""
@@ -144,10 +179,81 @@ def check_grads(ranks, single, shard):
                                        atol=GRAD_ATOL, err_msg=f"rank {rank} {path}")
 
 
+def check_grads_scaled(ranks, single, shard):
+    """``check_grads``, and every grad within 1e-4 of its leaf's largest
+    (single-device) grad: a grad summed twice over a group shows on
+    leaves whose grads are too small for the absolute bound."""
+    check_grads(ranks, single, shard)
+    for rank, r in enumerate(ranks):
+        for path, g in items(r["grads"]):
+            ref = shard(path, single["grads"][path].numpy(), rank)
+            assert np.abs(g - ref).max() <= 1e-4 * np.abs(ref).max(), (rank, path)
+
+
 def check_eval(ranks, jax_eval):
     for r in ranks:
         for k, v in jax_eval.items():
             np.testing.assert_allclose(r["eval"][k], v, atol=ATOL, err_msg=k)
+
+
+def design_collectives(cfg, units, masked, n_seq=1):
+    """The collectives a train step issues by kind under a mesh, as the
+    design lays them out (ray_tpu_torch/parallel/collectives.py), for L
+    layers each run R times forward (2 under remat: the re-run) and U
+    grad tensors (one a leaf, a stacked leaf one a layer):
+
+    - all_gather: per block run, each leaf cut over fsdp the block reads
+      (wq, wk, wv, wo, wi_gate, wi_up, wo_mlp; MoE's router; LoRA's
+      wq_a, wv_a and, dense only, wi_a), and MoE's tokens; the embedding
+      table twice (lookup and unembedding: unembed, or embed when tied);
+      the sequence shards' first tokens for the loss;
+    - reduce_scatter: one per gather of a leaf, in the backward;
+    - all_reduce: per block run, attention's ``wo`` and the MLP's
+      ``wo_mlp`` partials (MoE: the expert combine), but for the dense
+      MLP's in the re-run, which stops once it has recomputed what the
+      backward saved (torch's non-reentrant checkpoint stops early, and
+      nothing saves that sum's output); per block in the
+      backward, the attention and MLP inputs' grads (MoE: the expert
+      input's) and LoRA's x·A grads; the embedding's vocab partials and
+      the unembedding input's grad; the loss's max, partial sums and
+      argmax min over tensor, its metrics and, with a loss_mask, the mask
+      sum; U grads; the norm;
+    - send: ring attention over n_seq ranks, per layer 2(n-1) tensors
+      (K, V) a forward run and 2(n-1) + 2n in the backward (dK, dV
+      accumulators home too).
+    """
+    R, L = (2 if cfg.remat else 1), cfg.layers
+    moe = bool(cfg.num_experts)
+    lora = (2 if moe else 3) if cfg.lora_rank else 0
+    leaves = 7 + moe + lora
+    ring = 0 if n_seq == 1 else R * 2 * (n_seq - 1) + 4 * n_seq - 2
+    return {"all_gather": R * L * (leaves + moe) + 3,
+            "reduce_scatter": L * (leaves + moe) + 2,
+            "all_reduce": (2 * R - (R - 1) * (not moe)) * L + (2 + lora) * L + 2 + 4
+            + int(masked) + units + 1,
+            "send": L * ring}
+
+
+def mesh_shard(tcfg, spec):
+    """``shard(path, whole, rank)``: rank ``rank``'s shard of a whole leaf
+    (numpy) of ``tcfg``'s params at the mesh ``spec`` (a sizes mapping),
+    ranks laid out as build_mesh lays them (a reshape in AXIS_ORDER)."""
+    sizes = {a: spec.get(a, 1) for a in AXIS_ORDER}
+    axes = dict(items(T.param_axes(tcfg)))
+
+    def shard(path, a, rank):
+        coord = dict(zip(AXIS_ORDER, np.unravel_index(rank, [sizes[x] for x in AXIS_ORDER])))
+        for dim, entry in enumerate(spec_for(axes[path], None, sizes)):
+            if entry is None:
+                continue
+            index, count = 0, 1
+            for name in (entry,) if isinstance(entry, str) else entry:
+                index, count = index * sizes[name] + coord[name], count * sizes[name]
+            part = a.shape[dim] // count
+            a = np.take(a, np.arange(index * part, (index + 1) * part), axis=dim)
+        return a
+
+    return shard
 
 
 def whole(path, a, rank):

@@ -15,6 +15,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import sharded_step_ref as R
 from ray_tpu.models import transformer as JT
 from ray_tpu.parallel import mesh as JM
 from ray_tpu.parallel import sharding as JSH
@@ -118,7 +119,12 @@ def test_single_device_mesh(world_of_one):
     assert P.build_mesh(P.MeshSpec(data=-1), "cpu").mesh.tolist() == [[[[[[[0]]]]]]]
 
 
-@pytest.mark.parametrize("name", ["moe_debug", "debug"])
+ONE_RANK = {"moe_debug": ("moe_debug", {}), "debug": ("debug", {}),
+            "debug_lora": ("debug", {"lora_rank": 4}),
+            "debug_tied": ("debug", {"tie_embeddings": True})}
+
+
+@pytest.mark.parametrize("name", list(ONE_RANK))
 def test_mesh_of_one_is_the_single_device_step(world_of_one, name):
     """The sharded step on a mesh of one rank (JAX's positional order:
     init_state(cfg, opt, mesh), make_train_step(cfg, opt, mesh, rules))
@@ -126,12 +132,14 @@ def test_mesh_of_one_is_the_single_device_step(world_of_one, name):
     metric of 3 steps and the whole state after them bit-identical
     (deterministic algorithms and one thread: else the CPU's embedding
     backward sums in a varying order, and a BLAS may split its sums by
-    the machine's load), and the collectives each step issues: per
-    MoE layer 2 all-gathers (forward and remat re-run), 1 reduce-scatter,
-    3 all-reduces (2 combines, 1 input grad); U grad all-reduces, the
-    norm's, the metrics' and the mask sum's."""
+    the machine's load), and the collectives each step issues, as
+    tests/sharded_step_ref.py's design_collectives counts them: the FSDP
+    gathers and their reduce-scatters, the tensor group's sums, the
+    loss's reductions and the MoE layers' collectives, each at size one.
+    Dense, LoRA and tied-embedding configs run every FSDP and TP path."""
     mesh = world_of_one
-    cfg = T.config(name, dtype=torch.float32, param_dtype=torch.float32, remat=True)
+    preset, kw = ONE_RANK[name]
+    cfg = T.config(preset, dtype=torch.float32, param_dtype=torch.float32, remat=True, **kw)
     opt = S.default_optimizer(cfg, lr=1e-2)
     toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (8, 64))
     mask = np.ones((8, 64), np.float32)
@@ -145,10 +153,7 @@ def test_mesh_of_one_is_the_single_device_step(world_of_one, name):
         sharded = S.init_state(cfg, opt, mesh)
         run_plain = S.make_train_step(cfg, opt, device="cpu")
         run_mesh = S.make_train_step(cfg, opt, mesh, P.DEFAULT_RULES)
-        moe = cfg.layers if cfg.num_experts else 0
-        units = len(S.step._units(plain["params"]))
-        want = {"all_gather": 2 * moe, "reduce_scatter": moe,
-                "all_reduce": 3 * moe + units + 3}
+        want = R.design_collectives(cfg, len(S.step._units(plain["params"])), masked=True)
         for i in range(3):
             plain, m = run_plain(plain, batch)
             P.reset_collectives()

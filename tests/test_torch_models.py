@@ -192,13 +192,17 @@ def test_unported_paths_raise():
     dense = T.config("debug", dtype=torch.float32)
     params = T.init_params(dense, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    # mesh axes the port does not take yet, by their ROADMAP.md Queue A item
-    for spec, item in ((MeshSpec(fsdp=2), 3), (MeshSpec(tensor=2), 3),
-                       (MeshSpec(sequence=2), 2), (MeshSpec(stage=2), 4)):
+    # meshes the port does not take yet, by their ROADMAP.md Queue A item:
+    # stage for every config; fsdp, tensor and sequence for MoE only
+    for cfg, spec, item in ((moe, MeshSpec(fsdp=2), "4b"), (moe, MeshSpec(tensor=2), "4b"),
+                            (moe, MeshSpec(sequence=2), "4b"),
+                            (dense, MeshSpec(stage=2), "4 ")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A item {item}"):
-            T.forward(dense, params, toks, mesh=spec)
+            T.forward(cfg, params, toks, mesh=spec)
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A item {item}"):
-            T.loss_fn(dense, params, {"tokens": toks}, mesh=spec)
+            T.loss_fn(cfg, params, {"tokens": toks}, mesh=spec)
+    with pytest.raises(ValueError, match="tensor=4 must divide"):  # 2 KV heads
+        T.loss_fn(dense, params, {"tokens": toks}, mesh=MeshSpec(tensor=4))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 4"):
         T.loss_fn(dense, params, {"tokens": toks}, num_microbatches=2)
     with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is a DeviceMesh

@@ -10,9 +10,11 @@ tests/test_torch_sharded_step_lora.py: LoRA); each runs one group of 8
 gloo ranks (tests/torch_ranks.py). Tolerances: tests/sharded_step_ref.py.
 
 Collectives per step of the design for a dense config with no
-loss_mask: U all-reduces of the grads over the data group (U grad
-tensors: one a leaf, a stacked leaf one a layer), one for the metrics
-and one over the expert group for the norm; no gather.
+loss_mask (tests/sharded_step_ref.py's ``design_collectives``): U
+all-reduces of the grads over the data group (U grad tensors: one a
+leaf, a stacked leaf one a layer), the metrics' and the norm's; the
+FSDP gathers, their reduce-scatters, the tensor group's sums and the
+loss's reductions over the vocabulary, each at size one.
 """
 
 import pytest
@@ -48,5 +50,5 @@ def test_eval_step_matches_jax(world):
 
 def test_collectives_per_step(world):
     """debug: U = 21 (9 block leaves x 2 layers + embed, ln_f, unembed)."""
-    want = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 21 + 2}
+    want = R.design_collectives(R.configs("debug")[1], 21, masked=False)
     assert all(r["collectives"] == [want] * R.STEPS for r in world["ranks"])

@@ -48,5 +48,5 @@ def test_lora_only_adapters_move(world):
 def test_collectives_per_step(world):
     """tiny with LoRA: U = 63 (9 block and 6 adapter leaves x 4 layers +
     embed, ln_f, unembed); frozen leaves' grads are summed too."""
-    want = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 63 + 2}
+    want = R.design_collectives(R.configs("tiny", lora_rank=8)[1], 63, masked=False)
     assert all(r["collectives"] == [want] * R.STEPS for r in world["ranks"])

@@ -200,7 +200,12 @@ def _unflat(flat, like, prefix=""):
 def test_unported_step_options_raise():
     _, tcfg = _configs("dense")
     opt = S.default_optimizer(tcfg)
-    for kw, item in (({"mesh": TMeshSpec(fsdp=4, tensor=2)}, 3),
-                     ({"num_microbatches": 2}, 4)):
+    for kw, item in (({"mesh": TMeshSpec(stage=2, tensor=2)}, "4 "),
+                     ({"num_microbatches": 2}, "4 ")):
         with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
             S.make_train_step(tcfg, opt, device="cpu", **kw)
+    # fsdp, tensor and sequence are ported for dense and LoRA configs, not MoE
+    _, moe = _configs("moe")
+    with pytest.raises(NotImplementedError, match="Queue A item 4b"):
+        S.make_train_step(moe, S.default_optimizer(moe), TMeshSpec(fsdp=4, tensor=2),
+                          device="cpu")

@@ -1,10 +1,13 @@
-"""The ranks of the port's sharded-step tests (tests/test_torch_sharded_step*.py).
+"""The ranks of the port's multi-rank tests (tests/test_torch_sharded_step*.py,
+tests/test_torch_ring_attention.py).
 
 ``World`` spawns one group of gloo ranks on the CPU, brought up over a
 FileStore in a temporary directory (no TCP port), and runs every case of
 a test file in it: a case is a function of this module, named with its
 keyword arguments (numpy inputs: tokens, masks, the JAX train state).
-Each rank returns its results as numpy, collected per rank.
+Each rank returns its results as numpy, collected per rank. A group
+that has not finished within ``World.DEADLINE`` seconds is ended and its
+file fails, naming the ranks still alive.
 This module imports only torch, numpy and ray_tpu_torch: the JAX
 reference runs in the pytest process.
 """
@@ -26,8 +29,9 @@ import torch.multiprocessing as mp
 from ray_tpu_torch import train as S
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.convert import params_from_jax, state_from_jax
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import (
-    DEFAULT_RULES, MeshSpec, build_mesh, local_shard, read_collectives,
+    DEFAULT_RULES, MeshSpec, build_mesh, local_shard, mesh_groups, read_collectives,
     reset_collectives,
 )
 
@@ -43,8 +47,11 @@ class World:
     rank's {name: result}, by rank. ``stop`` ends any rank still
     running."""
 
-    def __init__(self, world: int, tmp_path):
-        self.world, self.out = world, str(tmp_path)
+    DEADLINE = 180.0  # seconds from the spawn to the last rank's exit
+
+    def __init__(self, world: int, tmp_path, deadline: float = DEADLINE):
+        self.world, self.out, self.limit = world, str(tmp_path), deadline
+        self.deadline = time.monotonic() + deadline
         self.ctx = mp.start_processes(_rank, args=(world, self.out), nprocs=world,
                                       start_method="spawn", join=False)
 
@@ -55,8 +62,12 @@ class World:
         os.replace(path + ".tmp", path)
 
     def results(self) -> list:
-        while not self.ctx.join():
-            pass
+        while not self.ctx.join(timeout=1):
+            if time.monotonic() > self.deadline:
+                alive = [r for r, p in enumerate(self.ctx.processes) if p.is_alive()]
+                self.stop()
+                raise TimeoutError(f"ranks {alive} of {self.world} still running "
+                                   f"{self.limit:.0f} s after the spawn")
         loaded = []
         for r in range(self.world):
             with open(os.path.join(self.out, f"rank{r}.pkl"), "rb") as f:
@@ -90,6 +101,11 @@ def _rank(rank, world, out):
         dist.destroy_process_group()
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
+
+
+def sleep(seconds):
+    """A rank that hangs (for the deadline's test)."""
+    time.sleep(seconds)
 
 
 def _cfg(preset, overrides):
@@ -196,8 +212,10 @@ def init(preset, overrides, spec, seed=0):
 
 
 def unported(preset):
-    """The error each mesh the port does not take yet raises, from every
-    entry point: (axis, entry point) → the message."""
+    """The error each mesh the port does not take for the MoE ``preset``
+    raises, from every entry point: (axis, entry point) → the message, or
+    None where it runs (fsdp, tensor and sequence above 1 for MoE; stage
+    and microbatches for every config)."""
     cfg = _cfg(preset, {})
     opt = S.default_optimizer(cfg)
     world = dist.get_world_size()
@@ -222,6 +240,28 @@ def unported(preset):
     except NotImplementedError as e:
         out[("num_microbatches", "make_train_step")] = str(e)
     return out
+
+
+def ring(q, k, v, do, causal=True):
+    """ring_attention over the sequence group of ``MeshSpec(sequence=world)``
+    on this rank's shard of the global q, k, v (numpy): its O, the grads
+    of (O * do).sum() for its q, k, v shards, and the tensors it sent in
+    the forward and in the backward."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = mesh_groups(build_mesh(MeshSpec(sequence=world), "cpu")).seq
+    s = q.shape[1] // world
+
+    def mine(a):
+        return torch.from_numpy(np.ascontiguousarray(a[:, rank * s:(rank + 1) * s]))
+
+    tq, tk, tv = (mine(a).requires_grad_() for a in (q, k, v))
+    reset_collectives()
+    o = ring_attention(tq, tk, tv, group, causal)
+    sent_fwd = read_collectives()["send"]
+    reset_collectives()
+    (o * mine(do)).sum().backward()
+    return {"o": o.detach().numpy(), "dq": tq.grad.numpy(), "dk": tk.grad.numpy(),
+            "dv": tv.grad.numpy(), "sent": (sent_fwd, read_collectives()["send"])}
 
 
 def _items(tree, prefix=""):
