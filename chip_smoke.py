@@ -32,8 +32,16 @@ before it and read just after:
   plain versions at 4 x 1024;
 - sharded dense training: llama2_7b_lora at full width through a mesh
   of one rank, the FSDP and tensor-parallel code with every collective a
-  copy: 2 warm-up and 3 timed steps, held against the unsharded steps
-  (step 0's loss bit-identical).
+  copy, 8 microbatches asked for (ignored at stage 1, as in JAX): 2
+  warm-up and 3 timed steps, held against the unsharded steps (step 0's
+  loss bit-identical);
+- pipelined training: llama2_7b_lora at full width as a GPipe pipeline of
+  4 stages (8 layers each) and 8 microbatches, every stage's loops run on
+  this card through an in-process transport (the per-stage loops of
+  ray_tpu_torch/ops/pipeline.py that the P2P path feeds across ranks): 2
+  warm-up and 3 timed steps, step 0's loss and grad norm held against
+  the unpipelined step's within twice that step's own distance from the
+  same step in fp32 (measured here).
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -126,6 +134,9 @@ MOE_LAYERS = 4  # mixtral_8x7b's 32 layers cut to 4: 46.7 B params do not fit 80
 MOE_TOKENS = 1024  # tokens of the one-layer card-vs-CPU check
 MOE_FP32_TOL = 1e-4  # card vs CPU in fp32 (TF32 off): summation order only
 MESH_TIMED = 3  # timed steps of the sharded MoE step (after TRAIN_WARMUP)
+# the pipelined step: llama2_7b_lora's 32 layers as 4 stages of 8, the
+# batch of 8 as 8 microbatches of one row
+PIPE_STAGES, PIPE_MICRO = 4, 8
 RING_N = 4  # ranks of the ring driven on one card
 # (name, B, S of the whole sequence, H, Hkv, D, causal, reference): llama3_8b's
 # attention (long context is what the sequence axis is for), bf16; the
@@ -853,9 +864,11 @@ def design_collectives(cfg, units, masked):
 
     - all_gather: per block run, each leaf cut over fsdp the block reads
       (wq, wk, wv, wo, wi_gate, wi_up, wo_mlp; MoE's router; LoRA's wq_a,
-      wv_a and, dense only, wi_a) and MoE's tokens; the embedding table
+      wv_a and, dense only, wi_a) and MoE's tokens (over the sequence
+      group, then the batch group); the embedding table
       twice (lookup, unembedding); the sequence shards' first tokens;
-    - reduce_scatter: one per gather of a leaf, in the backward;
+    - reduce_scatter: one per gather of a leaf or of MoE's tokens, in the
+      backward;
     - all_reduce: per block run attention's and the MLP's partial sums
       over tensor (MoE: the expert combine), but for the dense MLP's in
       the remat re-run (torch's checkpoint stops once the backward's
@@ -869,7 +882,8 @@ def design_collectives(cfg, units, masked):
     moe = bool(cfg.num_experts)
     lora = (2 if moe else 3) if cfg.lora_rank else 0
     leaves = 7 + moe + lora
-    return {"all_gather": r * n * (leaves + moe) + 3, "reduce_scatter": n * (leaves + moe) + 2,
+    return {"all_gather": r * n * (leaves + 2 * moe) + 3,
+            "reduce_scatter": n * (leaves + 2 * moe) + 2,
             "all_reduce": (2 * r - (r - 1) * (not moe)) * n + (2 + lora) * n + 2 + 4
             + int(masked) + units + 1, "send": 0}
 
@@ -879,10 +893,11 @@ def mesh_train_steps(smi, unsharded) -> dict:
     world of one (ray_tpu_torch.parallel.single_device_mesh on cuda,
     every axis of MeshSpec() 1), llama2_7b_lora at full width with
     train_steps' seed and batch, through init_state(cfg, opt, mesh) and
-    make_train_step(cfg, opt, mesh): the FSDP gathers and their
-    reduce-scatters, the tensor group's sums, the vocab-parallel
-    embedding and loss, each at size one. 2 warm-up, MESH_TIMED timed
-    and 1 profiled step. Held against ``unsharded`` (train_steps'
+    make_train_step(cfg, opt, mesh, None, True, PIPE_MICRO): the FSDP
+    gathers and their reduce-scatters, the tensor group's sums, the
+    vocab-parallel embedding and loss, each at size one; the microbatches
+    are ignored at stage 1, as in JAX. 2 warm-up, MESH_TIMED timed and 1
+    profiled step. Held against ``unsharded`` (train_steps'
     numbers): step 0's loss and accuracy bit-identical, its grad_norm
     within 1e-5 relative; launches 64/32/32 and the design's collectives
     every step. Returns one step's kernel launches."""
@@ -904,7 +919,7 @@ def mesh_train_steps(smi, unsharded) -> dict:
             if dist.get_backend() != "nccl":
                 raise AssertionError(f"a cuda mesh on {dist.get_backend()}")
             state = S.init_state(cfg, opt, mesh, seed=SEED)
-            run = S.make_train_step(cfg, opt, mesh)
+            run = S.make_train_step(cfg, opt, mesh, None, True, PIPE_MICRO)
             tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
                 0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
             batch = {"tokens": tokens}
@@ -945,6 +960,7 @@ def mesh_train_steps(smi, unsharded) -> dict:
                    "tol": {"grad_norm_rel": 1e-5}}
             emit({"model": "llama2_7b_lora", "layers": cfg.layers,
                   "mesh": "MeshSpec() on an NCCL world of one",
+                  "num_microbatches": PIPE_MICRO, "stage": 1,
                   "batch": TRAIN_BATCH, "seq": MAX_LEN, "param_dtype": "bfloat16",
                   "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
                   "tokens_per_s": tok_s, "mfu_6n": 6 * cfg.num_params() * tok_s / peak,
@@ -967,6 +983,138 @@ def mesh_train_steps(smi, unsharded) -> dict:
             dist.destroy_process_group()
             gc.collect()
             torch.cuda.empty_cache()
+    return launches
+
+
+def pipeline_train_steps(smi, unsharded) -> dict:
+    """The pipelined training path at full width: llama2_7b_lora (32
+    layers, bf16 params, B=8 x 2048, remat, train_steps' seed and batch)
+    through make_train_step(cfg, opt, None, None, True, PIPE_MICRO,
+    stages=PIPE_STAGES): every stage's forward and backward loops
+    (ray_tpu_torch/ops/pipeline.py) run on this card, one stage after
+    another, through the in-process transport; the card holds one NCCL
+    rank, so the P2P transport is held on the CPU under gloo
+    (tests/test_torch_pipeline*.py). 2 warm-up, MESH_TIMED timed and 1
+    profiled step. Each step launches each flash kernel PIPE_MICRO times
+    the unpipelined step's count, each on one microbatch, and sends
+    2 (stages - 1) PIPE_MICRO activations and their grads. Step 0's loss
+    and grad norm are held against ``unsharded`` (train_steps' numbers)
+    within twice the distance of that step from the same step in fp32
+    (the unpipelined step on fp32 params, run here after the pipelined
+    one). Returns one step's kernel launches."""
+    from ray_tpu_torch import parallel as P
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("pipeline_train_steps"):
+        cfg = T.config("llama2_7b_lora", param_dtype=torch.bfloat16)
+        opt = S.default_optimizer(cfg)
+        state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+        run = S.make_train_step(cfg, opt, None, None, True, PIPE_MICRO, device="cuda",
+                                stages=PIPE_STAGES)
+        tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+            0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+        batch = {"tokens": tokens}
+        # forward + remat re-run, one backward: per layer and microbatch
+        want = {"flash_fwd": 2 * cfg.layers * PIPE_MICRO,
+                "flash_bwd_dq": cfg.layers * PIPE_MICRO,
+                "flash_bwd_dkv": cfg.layers * PIPE_MICRO}
+        want_sends = 2 * (PIPE_STAGES - 1) * PIPE_MICRO
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        # the step is host-bound: the host time the garbage collector takes
+        # in each step, and the caching allocator's retries (each frees
+        # cached blocks and synchronises the card)
+        gc_ms = [0.0, 0.0]  # this step's ms, the current collection's start
+
+        def on_gc(when, info):
+            if when == "start":
+                gc_ms[1] = time.perf_counter()
+            else:
+                gc_ms[0] += 1e3 * (time.perf_counter() - gc_ms[1])
+
+        metrics, step_ms = [], []
+        gc.callbacks.append(on_gc)
+        try:
+            for i in range(TRAIN_WARMUP + MESH_TIMED):
+                retries = torch.cuda.memory_stats()["num_alloc_retries"]
+                gc_ms[0] = 0.0
+                # ---- the main path: counts from 0, read right after ------
+                reset_launches(A)
+                P.reset_collectives()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = run(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                launches, sends = read_launches(A), P.read_collectives()["send"]
+                # ---- end of the main path --------------------------------
+                metrics.append({k: float(v) for k, v in m.items()})
+                emit({"pipeline_train_step": i, "warmup": i < TRAIN_WARMUP, "ms": step_ms[-1],
+                      **metrics[-1], "launches": launches, "sends": sends,
+                      "gc_ms": gc_ms[0],
+                      "alloc_retries": torch.cuda.memory_stats()["num_alloc_retries"] - retries,
+                      "reserved_bytes": torch.cuda.memory_reserved()})
+                if launches != want or sends != want_sends:
+                    raise AssertionError(f"pipelined step {i} launched {launches} and sent "
+                                         f"{sends}, expected {want} and {want_sends}")
+        finally:
+            gc.callbacks.remove(on_gc)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        timed = sorted(step_ms[TRAIN_WARMUP:])
+        med = timed[len(timed) // 2]
+        tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
+        peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
+        prof = profiled(lambda: run(state, batch), top=16)
+        emit({"profile": "pipeline_train_step", "card": smi, **prof})
+        torch.cuda.synchronize()
+        del state, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the unpipelined step's own bf16-vs-fp32 distance, at step 0
+        t0 = time.perf_counter()
+        cfg32 = T.config("llama2_7b_lora", dtype=torch.float32, param_dtype=torch.float32)
+        opt32 = S.default_optimizer(cfg32)
+        st32 = S.init_state(cfg32, opt32, seed=SEED, device="cuda")
+        _, m32 = S.make_train_step(cfg32, opt32, device="cuda")(st32, batch)
+        fp32 = {k: float(v) for k, v in m32.items()}
+        fp32_s = time.perf_counter() - t0
+        fp32_peak = torch.cuda.max_memory_allocated()
+        del st32, m32
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = unsharded["metrics"][0]
+        keys = ("loss", "grad_norm")
+        gap = {k: abs(ref[k] - fp32[k]) for k in keys}
+        diff = {k: abs(metrics[0][k] - ref[k]) for k in keys}
+        tol = {k: 2 * gap[k] for k in keys}
+        losses = [m_["loss"] for m_ in metrics]
+        emit({"model": "llama2_7b_lora", "layers": cfg.layers, "stages": PIPE_STAGES,
+              "layers_a_stage": cfg.layers // PIPE_STAGES, "num_microbatches": PIPE_MICRO,
+              "transport": "in-process (every stage on this card)",
+              "batch": TRAIN_BATCH, "seq": MAX_LEN, "param_dtype": "bfloat16",
+              "step_ms_median": med, "step_ms_timed": step_ms[TRAIN_WARMUP:],
+              "tokens_per_s": tok_s, "mfu_6n": 6 * cfg.num_params() * tok_s / peak,
+              "peak_allocated_bytes": peak_bytes,
+              # the profiled step's; the profiler's host overhead inflates it
+              # where the host launches ~8x the kernels, so also the share
+              # of the timed median the profiled device work leaves idle
+              "device_idle_share": prof["device_idle_share"],
+              "device_idle_share_of_median": max(0.0, 1 - prof["device_busy_ms"] / med),
+              "launches_per_step": launches, "sends_per_step": sends,
+              "unpipelined": {k: unsharded[k] for k in (
+                  "step_ms_median", "tokens_per_s", "mfu_6n", "peak_allocated_bytes")},
+              "step0": {"pipelined": {k: metrics[0][k] for k in keys},
+                        "unpipelined": {k: ref[k] for k in keys},
+                        "unpipelined_fp32": {k: fp32[k] for k in keys},
+                        "diff": diff, "gap_bf16_vs_fp32": gap, "tol": tol},
+              "fp32_step_peak_allocated_bytes": fp32_peak, "fp32_step_s": fp32_s,
+              "losses": losses, "clock": "host, synchronized", "card": smi})
+        if not (all(diff[k] <= tol[k] for k in keys) and all(np.isfinite(losses))
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"pipelined step disagrees with the unpipelined one: "
+                                 f"diff {diff}, tol {tol}, losses {losses}")
     return launches
 
 
@@ -1248,8 +1396,11 @@ def moe_mesh_train_steps(smi, unsharded) -> dict:
     of one (ray_tpu_torch.parallel.single_device_mesh on cuda, every axis
     of MeshSpec() 1), the same model, seed and batch as moe_train_steps,
     through init_state(cfg, opt, mesh) and make_train_step(cfg, opt, mesh):
-    the data and expert axes' code with each collective a copy. 2 warm-up,
-    MESH_TIMED timed and 1 profiled step. Held against ``unsharded``
+    the data and expert axes' code with each collective a copy, and the
+    MoE layer's sequence gather, its expert leaves' fsdp gathers and its
+    sum over the (expert, tensor) group, each at size one. 2 warm-up,
+    MESH_TIMED timed and 1 profiled step; its step ms and peak memory
+    beside the unsharded ones, and their deltas. Held against ``unsharded``
     (moe_train_steps' numbers): step 0's loss and accuracy bit-identical,
     its grad_norm within 1e-5 relative, the losses of steps 1-2 within
     1e-3. Returns one step's kernel launches."""
@@ -1324,6 +1475,8 @@ def moe_mesh_train_steps(smi, unsharded) -> dict:
                   "unsharded": {k: unsharded[k] for k in (
                       "step_ms_median", "tokens_per_s", "mfu_6n_active",
                       "peak_allocated_bytes")},
+                  "delta_ms": med - unsharded["step_ms_median"],
+                  "delta_peak_gb": (peak_bytes - unsharded["peak_allocated_bytes"]) / 1e9,
                   "against_unsharded": cmp, "clock": "host, synchronized", "card": smi})
             ok = (cmp["step0_loss"][0] == cmp["step0_loss"][1]
                   and cmp["step0_accuracy"][0] == cmp["step0_accuracy"][1]
@@ -1483,6 +1636,7 @@ def main() -> int:
     mesh = mesh_train_steps(smi, train_numbers)
     gc.collect()
     torch.cuda.empty_cache()
+    pipe = pipeline_train_steps(smi, train_numbers)
     moe_vs_cpu()
     moe, moe_numbers = moe_train_steps(smi)
     moe_mesh = moe_mesh_train_steps(smi, moe_numbers)
@@ -1491,6 +1645,7 @@ def main() -> int:
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "train_step": train[name],
                                    "ring": ring[name], "mesh_train_step": mesh[name],
+                                   "pipeline_train_step": pipe[name],
                                    "moe_train_step": moe[name],
                                    "moe_mesh_train_step": moe_mesh[name]}
         if name != "flash_fwd":  # the training step is their main path

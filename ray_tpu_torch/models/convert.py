@@ -10,7 +10,8 @@ module never imports JAX (nor optax: the caller pulls mu, nu and count
 out of the optax state).
 
 Under a ``mesh`` (ray_tpu_torch.parallel) both return this rank's shard:
-each leaf, and its Adam moments, cut over fsdp, tensor and expert as
+each leaf, and its Adam moments, cut over fsdp, tensor, expert and (the
+layer-stacked leaves' ``layers`` dim) stage as
 ``param_axes`` and the rules place them, so JAX's weights carry across
 into a sharded state.
 """

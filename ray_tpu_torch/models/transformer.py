@@ -35,12 +35,18 @@ place them; the collectives JAX's GSPMD program derives are written out
   input dim, the embedding and unembedding over the vocabulary: the
   lookup is masked to the rank's rows and summed, the loss takes a
   distributed log-sum-exp, target logit and argmax;
-- expert: a MoE layer routes over the data group's gathered tokens and
-  sums its local experts' outputs over the expert group.
+- expert: a MoE layer routes over the gathered tokens of the batch and
+  sequence groups (the global batch, or under a pipeline the global
+  microbatch) and sums its local experts' outputs over the expert and
+  tensor groups (each rank holds its experts' cut of ``mlp``);
+- stage: the layer stack runs as a GPipe pipeline of M microbatches
+  (ray_tpu_torch/ops/pipeline.py), each stage on its own layers; the
+  embedding, the final norm and the loss run on every stage, and the
+  loss counts on the last stage only.
 
-The mesh path issues its collectives whatever the axes' sizes. ``stage``
-above 1 and microbatches, and MoE under sequence, fsdp or tensor above
-1, raise NotImplementedError naming their ROADMAP row (``check_mesh``).
+The mesh path issues its collectives whatever the axes' sizes. A MoE
+config under ``stage`` and ``sequence`` both above 1 raises
+NotImplementedError naming its ROADMAP row (``check_mesh``).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import default_device
 from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.pipeline import pipelined_layers
 from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel.collectives import (
     NO_MESH, MeshGroups, gather_dim, gather_rows, max_over, mesh_groups, min_over,
@@ -66,45 +73,58 @@ from ray_tpu_torch.parallel.sharding import axis_dim
 
 Params = Dict[str, Any]
 
-# what the port does not take yet, by the ROADMAP.md Queue A row that
-# brings it
-_PIPELINE = "item 4 (pipeline)"
-_MOE_AXES = "item 4b (mixture-of-experts under sequence, fsdp and tensor)"
+# what the port does not take, by the ROADMAP.md row that says why
+_MOE_PP_SP = "Queue C, MoE under stage and sequence"
 
 
 def check_mesh(mesh, num_microbatches: Optional[int] = None,
-               cfg: Optional["TransformerConfig"] = None) -> MeshGroups:
+               cfg: Optional["TransformerConfig"] = None, stages: int = 1) -> MeshGroups:
     """The groups the model's collectives run on under ``mesh`` (NO_MESH
-    for None), after checking that the port runs it: ``stage`` above 1
-    (``mesh`` may be a DeviceMesh, a MeshSpec or a sizes mapping for the
-    checks), ``num_microbatches``, and for a MoE ``cfg`` any of sequence,
-    fsdp and tensor above 1, raise NotImplementedError naming their
-    ROADMAP row; heads or KV heads that ``tensor`` does not divide raise
-    ValueError. A mesh that passes must be a DeviceMesh."""
-    if num_microbatches is not None:
-        raise NotImplementedError(
-            "num_microbatches (a pipelined step) is not ported yet "
-            f"(ROADMAP.md Queue A {_PIPELINE})")
-    n = mesh_axis_size(mesh, "stage")
-    if n > 1:
-        raise NotImplementedError(
-            f"mesh axis stage={n} is not ported yet (ROADMAP.md Queue A {_PIPELINE})")
+    for None; with ``stages`` above 1 and no mesh, a pipeline of that
+    many stages all run in this process), after checking that the port
+    runs it (``mesh`` may be a DeviceMesh, a MeshSpec or a sizes mapping
+    for the checks): a MoE ``cfg`` under
+    ``stage`` and ``sequence`` both above 1 raises NotImplementedError
+    naming its ROADMAP row; ``stage`` (or ``stages``) that does not
+    divide the layers, heads or KV heads that ``tensor`` does not divide,
+    ``stages`` beside a mesh and microbatches below 1 raise ValueError.
+    ``num_microbatches`` is used only when there are stages (JAX ignores
+    it otherwise). A mesh that passes must be a DeviceMesh."""
+    if stages > 1 and mesh is not None:
+        raise ValueError("stages runs every stage in this process: pass no mesh")
+    if num_microbatches is not None and num_microbatches < 1:
+        raise ValueError(f"num_microbatches {num_microbatches} < 1")
+    n_stage = mesh_axis_size(mesh, "stage") if mesh is not None else stages
     if cfg is not None:
-        for axis in ("fsdp", "sequence", "tensor"):
-            n = mesh_axis_size(mesh, axis)
-            if cfg.num_experts and n > 1:
-                raise NotImplementedError(
-                    f"a mixture-of-experts config under mesh axis {axis}={n} is not "
-                    f"ported yet (ROADMAP.md Queue A {_MOE_AXES})")
+        if cfg.layers % n_stage:
+            raise ValueError(f"stage={n_stage} must divide layers ({cfg.layers})")
+        n_seq = mesh_axis_size(mesh, "sequence")
+        if cfg.num_experts and n_stage > 1 and n_seq > 1:
+            # JAX routes per sequence shard of a microbatch there, per the
+            # whole batch under sequence alone: no one function to match
+            raise NotImplementedError(
+                f"a mixture-of-experts config under stage={n_stage} and sequence={n_seq} "
+                f"is not ported (ROADMAP.md {_MOE_PP_SP})")
         n = mesh_axis_size(mesh, "tensor")
         if cfg.heads % n or cfg.kv_heads % n:
             # contiguous head cuts keep the GQA map (query head h reads KV
             # head h // (heads / kv_heads)) only if tensor divides both
             raise ValueError(f"tensor={n} must divide heads ({cfg.heads}) and "
                              f"kv_heads ({cfg.kv_heads})")
-    if mesh is not None and not isinstance(mesh, DeviceMesh):
+    if mesh is None:
+        return dataclasses.replace(NO_MESH, n_stage=stages)
+    if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh: a DeviceMesh from build_mesh, not {type(mesh).__name__}")
     return mesh_groups(mesh)
+
+
+def microbatches(groups: MeshGroups, num_microbatches: Optional[int]) -> Optional[int]:
+    """The number of microbatches the layer stack runs in: None without a
+    pipeline, else ``num_microbatches`` or twice the stages (JAX's
+    default)."""
+    if groups.n_stage == 1:
+        return None
+    return num_microbatches or 2 * groups.n_stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,14 +446,22 @@ def _moe_mlp(cfg: TransformerConfig, y, p, groups: MeshGroups = NO_MESH):
     last row, which is cut off.
 
     Under a mesh (``groups``), as the JAX package's sharded step computes
-    it: the data group's tokens are gathered, so routing, the capacity C
-    and the slot order come from the global batch; the rank's E/n local
-    experts (``p``'s expert leaves are its shard) run on their slots; the
-    expert outputs are summed over the expert group; the rank keeps its
-    own rows."""
+    it: the tokens of the sequence group (along S) and of the batch group
+    (rows) are gathered, in the global batch's row-major order, so
+    routing, the capacity C and the slot order come from the global
+    batch (under a pipeline, the global microbatch: each stage's
+    microbatch is each rank's share of it, ``shard_batch``); the rank's
+    E/n local experts (``p``'s expert leaves are its shard, their ``mlp``
+    dim cut over tensor) run on their slots; the expert outputs are
+    summed over the expert and tensor groups (``groups.moe``); the rank
+    keeps its own rows and sequence shard. The gathers' backward
+    reduce-scatters the grads of the tokens, each rank's rows coming home
+    summed."""
     b, s, h = y.shape
     k = cfg.experts_per_token
-    x = gather_rows(y.reshape(b * s, h), groups.batch)
+    ys = gather_dim(y, 1, groups.seq)  # [b, S, h]: the whole sequence
+    s_all = ys.shape[1]
+    x = gather_rows(ys.reshape(b * s_all, h), groups.batch)
     t = x.shape[0]
     e = p["wi_gate"].shape[0]  # local experts
     if e * groups.n_expert != cfg.num_experts:
@@ -446,18 +474,19 @@ def _moe_mlp(cfg: TransformerConfig, y, p, groups: MeshGroups = NO_MESH):
     local = r.gate_idx.T.reshape(k * t) - groups.expert_rank * e
     mine = r.keep & (local >= 0) & (local < e)
     row = torch.where(mine, local * cap + r.slot, e * cap)
-    xk = sum_grads(x, groups.expert).repeat(k, 1)
+    xk = sum_grads(x, groups.moe).repeat(k, 1)
     xe = x.new_zeros(e * cap + 1, h).index_copy(0, row, xk)
     out_e = _expert_ffn(xe[:-1].view(e, cap, h), p).view(e * cap, h)
     # each buffer row's entry, or the spare entry if no entry landed there
     entry = torch.full((e * cap + 1,), k * t, dtype=torch.long, device=x.device)
     entry = entry.scatter(0, row, torch.arange(k * t, device=x.device))[:-1]
     yk = out_e.new_zeros(k * t + 1, h).index_copy(0, entry, out_e)[:-1]
-    yk = sum_partials(yk, groups.expert)
+    yk = sum_partials(yk, groups.moe)
     yk = yk * r.gate_vals.T.reshape(k * t).to(y.dtype)[:, None]
     out = yk.view(k, t, h).sum(0)
-    first = groups.batch_rank * b * s
-    return out[first:first + b * s].view(b, s, h)
+    first = groups.batch_rank * b * s_all
+    out = out[first:first + b * s_all].view(b, s_all, h)
+    return out[:, groups.seq_rank * s:(groups.seq_rank + 1) * s]
 
 
 def _mlp(cfg: TransformerConfig, x, p, lora, groups: MeshGroups = NO_MESH):
@@ -566,31 +595,43 @@ def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     (``parallel.shard_batch``: rows, and a contiguous sequence shard),
     ``params`` its shards, and the logits its rows, positions and, under
     tensor parallelism, vocabulary range; see ``check_mesh`` for the
-    meshes the port takes. ``positions`` default to the shard's global
-    ones."""
-    return _forward(cfg, params, tokens, positions, attn_fn,
-                    check_mesh(mesh, num_microbatches, cfg))
+    meshes the port takes. With ``stage`` above 1 the layer stack is a
+    pipeline of ``num_microbatches`` (default twice the stages).
+    ``positions`` default to the shard's global ones."""
+    groups = check_mesh(mesh, num_microbatches, cfg)
+    return _forward(cfg, params, tokens, positions, attn_fn, groups,
+                    microbatches(groups, num_microbatches))
 
 
 def _forward(cfg: TransformerConfig, params: Params, tokens, positions, attn_fn,
-             groups: MeshGroups):
+             groups: MeshGroups, num_microbatches: Optional[int] = None):
     s = tokens.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device) + groups.seq_rank * s
     attn_fn = attn_fn or _default_attn(cfg, groups)
-    # Full per-block remat, as the JAX package's jax.checkpoint: the
-    # backward re-runs each block from its input. A selective policy that
-    # kept the attention output would not help: the flash backward needs
-    # the LSE, which only the re-run forward kernel produces.
-    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run_layers(layers, x, pos):
+        # Full per-block remat, as the JAX package's jax.checkpoint: the
+        # backward re-runs each block from its input. A selective policy
+        # that kept the attention output would not help: the flash
+        # backward needs the LSE, which only the re-run forward kernel
+        # produces.
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp, lo in layers:
+            if remat:
+                x = checkpoint(_block, cfg, x, lp, lo, pos, attn_fn, groups,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _block(cfg, x, lp, lo, pos, attn_fn, groups)
+        return x
+
     x = _embed(cfg, params, tokens, groups)
-    for i in range(cfg.layers):
-        lp, lo = _layer(params, i)
-        if remat:
-            x = checkpoint(_block, cfg, x, lp, lo, positions, attn_fn, groups,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _block(cfg, x, lp, lo, positions, attn_fn, groups)
+    layers = [_layer(params, i) for i in range(len(params["blocks"]["wq"]))]
+    if groups.n_stage > 1:
+        x = pipelined_layers(run_layers, layers, x, positions, num_microbatches,
+                             groups.n_stage, groups.stage)
+    else:
+        x = run_layers(layers, x, positions)
     return _logits(cfg, params, x, groups)
 
 
@@ -618,7 +659,7 @@ def _next_tokens(tokens, mask, groups: MeshGroups):
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
-            mesh=None, num_microbatches: Optional[int] = None):
+            mesh=None, num_microbatches: Optional[int] = None, *, stages: int = 1):
     """Next-token cross-entropy. batch: tokens [B,S] int, optional
     loss_mask [B,S]. Returns (loss, {"loss", "accuracy", "tokens"}), all
     0-dim fp32 tensors on the tokens' device (no host sync).
@@ -632,13 +673,20 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
     to it over those ranks), the value to differentiate. Under tensor
     parallelism the log-sum-exp, the target logit and the argmax (ties to
     the lowest index, as ``torch.argmax`` over the whole vocabulary) are
-    reduced over the tensor group."""
-    groups = check_mesh(mesh, num_microbatches, cfg)
+    reduced over the tensor group. Under a pipeline (``stage`` above 1,
+    ``num_microbatches``: see ``forward``; or ``stages`` above 1 and no
+    mesh, every stage run in this process on the whole ``params``) the
+    loss is over the whole batch, not per microbatch; every stage
+    computes it, and ``loss`` is 0 on every stage but the last, so that
+    the grads of the leaves every stage holds (embed, unembed, ln_f) sum
+    over the stages to the loss's."""
+    groups = check_mesh(mesh, num_microbatches, cfg, stages)
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")
     # Forward over the whole shard (as the JAX package, whose sequence
     # shards must keep S divisible by the mesh axis); shift at the targets.
-    logits = _forward(cfg, params, tokens, None, attn_fn, groups).float()
+    logits = _forward(cfg, params, tokens, None, attn_fn, groups,
+                      microbatches(groups, num_microbatches)).float()
     targets, weight = _next_tokens(tokens, mask, groups)
     vocab = logits.shape[-1]
     first = groups.tensor_rank * vocab
@@ -666,8 +714,10 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
                            device=nll.device)
     nll_sum = nll.sum()
     sums = sum_partials(torch.stack([nll_sum.detach(), acc.sum()]), groups.tokens)
-    return nll_sum / denom, {"loss": sums[0] / denom, "accuracy": sums[1] / denom,
-                             "tokens": denom}
+    share = nll_sum / denom
+    if groups.stage is not None and groups.stage_rank + 1 < groups.n_stage:
+        share = share * 0.0
+    return share, {"loss": sums[0] / denom, "accuracy": sums[1] / denom, "tokens": denom}
 
 
 def trainable_mask(cfg: TransformerConfig, params: Params) -> Params:

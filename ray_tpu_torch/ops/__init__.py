@@ -9,6 +9,7 @@ from ray_tpu_torch.ops.attention import (
     gqa_expand,
     mha_reference,
 )
+from ray_tpu_torch.ops.pipeline import pipelined_layers
 from ray_tpu_torch.ops.ring_attention import ring_attention
 
 __all__ = [
@@ -19,4 +20,5 @@ __all__ = [
     "flash_attention_bwd",
     "gqa_expand",
     "ring_attention",
+    "pipelined_layers",
 ]

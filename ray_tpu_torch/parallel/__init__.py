@@ -2,8 +2,9 @@
 collectives of the sharded step (PyTorch port of ray_tpu.parallel).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the JAX
-package's seven axis names. The port runs every axis but ``stage``
-(ROADMAP.md Queue A item 4); multi-host bootstrap comes with item 7.
+package's seven axis names; the port runs every axis, ``stage`` (the
+pipeline, ray_tpu_torch/ops/pipeline.py) among them. Multi-host
+bootstrap comes with ROADMAP.md Queue A item 7.
 """
 
 from ray_tpu_torch.parallel.collectives import (

@@ -23,6 +23,9 @@ and ZeRO-3 do, with three autograd-aware primitives and a P2P ring:
 - ``exchange``: one step of a ring (``batch_isend_irecv``): send to the
   next rank of the group, receive from the previous (ring attention,
   ray_tpu_torch/ops/ring_attention.py).
+- ``StageLink``: the pipeline's stage-to-stage transport (``isend`` /
+  ``irecv`` to the next and previous stage of the stage group,
+  ray_tpu_torch/ops/pipeline.py).
 
 The ranks of a tensor or expert group compute the same values outside
 the cut products. Counting that replicated work once is what
@@ -75,14 +78,22 @@ class MeshGroups:
     - ``batch``: the axes the batch rows are cut on (replica, data, fsdp);
     - ``expert``, ``fsdp``, ``tensor``, ``seq``: one mesh axis each
       (``seq`` is the sequence axis);
+    - ``stage``: the pipeline's stages, with ``n_stage`` and
+      ``stage_rank``. ``n_stage`` above 1 with no ``stage`` group is a
+      pipeline whose stages all run in this process (no mesh);
+    - ``moe``: (expert, tensor), the ranks whose expert outputs a MoE
+      layer sums (each holds its experts' cut of ``mlp``);
     - ``tokens``: every axis the tokens are cut on (replica, data, fsdp,
       sequence): the loss's sums, and the grads of leaves not cut over
       fsdp;
     - ``peers``: (replica, data, sequence), the ranks that hold the same
       fsdp shard of a leaf but other tokens: the grads of leaves cut over
       fsdp;
-    - ``model``: the axes a leaf may be cut on (fsdp, expert, tensor):
-      the squared norms of the grad shards.
+    - ``stage_tokens``, ``stage_peers``: ``tokens`` and ``peers`` with
+      ``stage``: the grads of the leaves the pipeline leaves whole on
+      every stage (embed, unembed, ln_f);
+    - ``model``: the axes a leaf may be cut on (fsdp, stage, expert,
+      tensor): the squared norms of the grad shards.
     """
 
     batch: Optional[dist.ProcessGroup] = None
@@ -98,29 +109,42 @@ class MeshGroups:
     seq: Optional[dist.ProcessGroup] = None
     n_seq: int = 1
     seq_rank: int = 0
+    stage: Optional[dist.ProcessGroup] = None
+    n_stage: int = 1
+    stage_rank: int = 0
+    moe: Optional[dist.ProcessGroup] = None
     tokens: Optional[dist.ProcessGroup] = None
     peers: Optional[dist.ProcessGroup] = None
+    stage_tokens: Optional[dist.ProcessGroup] = None
+    stage_peers: Optional[dist.ProcessGroup] = None
     model: Optional[dist.ProcessGroup] = None
     n_model: int = 1
 
 
 NO_MESH = MeshGroups()
 _AXES = {"batch": ("replica", "data", "fsdp"), "expert": ("expert",), "fsdp": ("fsdp",),
-         "tensor": ("tensor",), "seq": ("sequence",),
+         "tensor": ("tensor",), "seq": ("sequence",), "stage": ("stage",),
+         "moe": ("expert", "tensor"),
          "tokens": ("replica", "data", "fsdp", "sequence"),
-         "peers": ("replica", "data", "sequence"), "model": ("fsdp", "expert", "tensor")}
+         "peers": ("replica", "data", "sequence"),
+         "stage_tokens": ("replica", "data", "fsdp", "stage", "sequence"),
+         "stage_peers": ("replica", "data", "stage", "sequence"),
+         "model": ("fsdp", "stage", "expert", "tensor")}
 _GROUPS: Dict[int, MeshGroups] = {}
 
 
-def _group(mesh: DeviceMesh, axes) -> dist.ProcessGroup:
+def _group(mesh: DeviceMesh, axes, made: dict) -> dist.ProcessGroup:
     """The group of ranks that differ only along ``axes``. One axis: the
     mesh's own group for it. Several above 1: a new group for each
     combination of the other coordinates (every rank creates all of them,
-    as ``new_group`` requires), this rank's returned."""
+    as ``new_group`` requires), this rank's returned; ``made`` keeps them
+    by the axes above 1, so two names for the same ranks share one."""
     names = mesh.mesh_dim_names
-    big = [a for a in axes if mesh.size(names.index(a)) > 1]
+    big = tuple(a for a in axes if mesh.size(names.index(a)) > 1)
     if len(big) <= 1:
         return mesh.get_group(big[0] if big else axes[-1])
+    if big in made:
+        return made[big]
     ranks = mesh.mesh
     dims = [names.index(a) for a in big]
     rest = [d for d in range(ranks.dim()) if d not in dims]
@@ -130,6 +154,7 @@ def _group(mesh: DeviceMesh, axes) -> dist.ProcessGroup:
         g = dist.new_group(row)
         if dist.get_rank() in row:
             mine = g
+    made[big] = mine
     return mine
 
 
@@ -140,9 +165,9 @@ def mesh_groups(mesh: Optional[DeviceMesh]) -> MeshGroups:
         return NO_MESH
     key = id(mesh)
     if key not in _GROUPS:
-        kw = {}
+        kw, made = {}, {}
         for name, axes in _AXES.items():
-            g = _group(mesh, axes)
+            g = _group(mesh, axes, made)
             kw[name] = g
             if f"n_{name}" in MeshGroups.__dataclass_fields__:
                 kw[f"n_{name}"] = dist.get_world_size(g)
@@ -287,3 +312,62 @@ def exchange(send: List[torch.Tensor], recv: List[torch.Tensor], group) -> list:
     ops += [dist.P2POp(dist.irecv, t, prev, group) for t in recv]
     _COUNTS["send"] += len(send)
     return dist.batch_isend_irecv(ops)
+
+
+class StageLink:
+    """The pipeline's transport over the stage group (this rank is stage
+    ``src`` of a send and ``dst`` of a receive): ``send`` posts an
+    ``isend`` of a tensor to stage ``dst`` and returns at once (the tensor
+    is kept until ``finish``); ``recv`` posts an ``irecv`` from stage
+    ``src`` and returns a function that waits for it and gives the
+    tensor. Between two stages tensors arrive in the order they were
+    sent. Every send counts one ``send``."""
+
+    def __init__(self, group):
+        self.group, self.pending = group, []
+
+    def send(self, x: torch.Tensor, src: int, dst: int) -> None:
+        x = x.contiguous()
+        _COUNTS["send"] += 1
+        self.pending.append((x, dist.isend(x, dist.get_global_rank(self.group, dst),
+                                           group=self.group)))
+
+    def recv(self, like: torch.Tensor, src: int, dst: int):
+        buf = torch.empty_like(like)
+        work = dist.irecv(buf, dist.get_global_rank(self.group, src), group=self.group)
+
+        def wait():
+            work.wait()
+            return buf
+        return wait
+
+    def finish(self) -> None:
+        for _, work in self.pending:
+            work.wait()
+        self.pending = []
+
+
+class LocalLink:
+    """The pipeline's transport between stages that run in one process,
+    one after another (each stage's loop runs whole before the next
+    one's): a queue per pair of stages. Counts ``send`` as StageLink."""
+
+    def __init__(self):
+        self.queues = collections.defaultdict(collections.deque)
+
+    def send(self, x: torch.Tensor, src: int, dst: int) -> None:
+        _COUNTS["send"] += 1
+        self.queues[src, dst].append(x)
+
+    def recv(self, like: torch.Tensor, src: int, dst: int):
+        return lambda: self.queues[src, dst].popleft()
+
+    def finish(self) -> None:
+        pass
+
+
+def broadcast_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The last stage's ``x`` on every stage of ``group``: an all-reduce
+    of ``x`` there and zeros elsewhere (no grad)."""
+    last = dist.get_rank(group) == dist.get_world_size(group) - 1
+    return _all_reduce(x if last else torch.zeros_like(x), group)

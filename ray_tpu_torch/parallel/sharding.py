@@ -6,10 +6,13 @@ Model code names each dim of a leaf by a *logical* axis ("batch",
 ``PartitionSpec``, as a tuple. Where JAX hands the spec to GSPMD, the
 port cuts each rank's shard itself: ``shard_batch`` for the batch (rows and
 sequence), ``local_shard`` / ``shard_tree`` for params and optimizer
-moments, cut over ``fsdp``, ``tensor`` and ``expert``; a leaf's spec
-that names ``stage`` above 1 raises (ROADMAP.md Queue A item 4). The
-model's collectives (ray_tpu_torch/models/transformer.py) assume the
-placement of ``DEFAULT_RULES``; ``check_rules`` refuses other rules.
+moments, cut over ``fsdp``, ``tensor``, ``expert`` and ``stage``. With
+``stage`` above 1 the leading ``layers`` dim of every layer-stacked leaf
+is cut into contiguous stage shards (``effective_rules``, as the JAX
+package's ``_effective_rules``); ``embed``, ``unembed`` and ``ln_f`` stay
+whole on every stage. The model's collectives
+(ray_tpu_torch/models/transformer.py) assume the placement of
+``DEFAULT_RULES``; ``check_rules`` refuses other rules.
 """
 
 from __future__ import annotations
@@ -42,10 +45,6 @@ DEFAULT_RULES: Rules = {
     "lora_rank": None,
 }
 
-# mesh axes a leaf's dim may be cut over in this slice
-_LEAF_AXES = ("fsdp", "tensor", "expert")
-_LEAF_TODO = "ROADMAP.md Queue A item 4 (pipeline)"
-
 
 def check_rules(rules: Optional[Rules]) -> None:
     """Raise NotImplementedError for rules other than ``DEFAULT_RULES``:
@@ -53,6 +52,17 @@ def check_rules(rules: Optional[Rules]) -> None:
     if rules is not None and dict(rules) != DEFAULT_RULES:
         raise NotImplementedError(
             "the port's sharded step runs DEFAULT_RULES' placement only")
+
+
+def effective_rules(mesh: MeshLike, rules: Optional[Rules] = None) -> Rules:
+    """``rules`` (DEFAULT_RULES for None) with, when ``mesh``'s stage axis
+    is above 1, the layer-stacked leaves' ``layers`` dim cut over
+    ``stage``, so each stage holds only its own layers (the JAX package's
+    ``_effective_rules``)."""
+    rules = dict(DEFAULT_RULES if rules is None else rules)
+    if mesh_sizes(mesh).get("stage", 1) > 1:
+        rules.setdefault("layers", "stage")
+    return rules
 
 
 def axis_dim(logical_axes: Sequence[Optional[str]], mesh_axis: str,
@@ -121,18 +131,15 @@ def _cut(x, dim: int, mesh: DeviceMesh, entry):
 def local_shard(mesh: Optional[DeviceMesh], x, logical_axes: Sequence[Optional[str]],
                 rules: Optional[Rules] = None):
     """This rank's shard of ``x`` (a tensor or numpy array, the whole
-    logical leaf) by the spec of ``logical_axes``: a view of ``x``, or
-    ``x`` itself when nothing is cut (also for ``mesh`` None)."""
+    logical leaf) by the spec of ``logical_axes`` under
+    ``effective_rules``: a view of ``x``, or ``x`` itself when nothing is
+    cut (also for ``mesh`` None). A dim that does not split evenly raises
+    ValueError (``layers`` over ``stage`` among them)."""
     if mesh is None:
         return x
-    for dim, entry in enumerate(spec_for(logical_axes, rules, mesh)):
-        if entry is None:
-            continue
-        axes = (entry,) if isinstance(entry, str) else entry
-        if any(a not in _LEAF_AXES for a in axes):
-            raise NotImplementedError(
-                f"a leaf cut over {entry} is not ported yet ({_LEAF_TODO})")
-        x = _cut(x, dim, mesh, entry)
+    for dim, entry in enumerate(spec_for(logical_axes, effective_rules(mesh, rules), mesh)):
+        if entry is not None:
+            x = _cut(x, dim, mesh, entry)
     return x
 
 
@@ -152,21 +159,37 @@ def shard_tree(mesh: Optional[DeviceMesh], tree: Dict[str, Any], axes: Dict[str,
 
 
 def shard_batch(mesh: Optional[DeviceMesh], batch: Dict[str, Any],
-                rules: Optional[Rules] = None) -> Dict[str, Any]:
+                rules: Optional[Rules] = None,
+                num_microbatches: Optional[int] = None) -> Dict[str, Any]:
     """This rank's part of a global batch (a dict of tensors [B, S, ...]
     or [B]): the batch dim cut over the mesh axes the ``batch`` rule
     names ((replica, data, fsdp) by default) and the sequence dim over
     ``seq``'s (sequence), as JAX's ``batch_sharding`` places them. The
-    global batch itself when ``mesh`` is None."""
+    global batch itself when ``mesh`` is None.
+
+    With ``num_microbatches`` M (a pipelined step), the rows of each
+    global microbatch (rows ``[i·B/M, (i+1)·B/M)``, as JAX's pipeline
+    splits the batch) are cut over the batch axes instead, and the rank
+    holds its share of microbatch 0, then of 1, ...: so its i-th M-th of
+    rows, gathered over the batch axes in rank order, is global
+    microbatch i (the group a MoE layer routes under the pipeline).
+    ValueError if M does not divide B or the batch axes do not divide
+    B/M."""
     if mesh is None:
         return batch
     out = {}
     for k, v in batch.items():
-        for dim, name in enumerate(("batch", "seq")[:v.dim()]):
+        lead = int(bool(num_microbatches) and v.ndim > 0)  # a leading microbatch dim
+        if lead:
+            m = num_microbatches
+            if v.shape[0] % m:
+                raise ValueError(f"batch {v.shape[0]} not divisible by microbatches {m}")
+            v = v.reshape(m, v.shape[0] // m, *v.shape[1:])
+        for dim, name in enumerate(("batch", "seq")[:v.ndim - lead]):
             entry = spec_for((name,), rules, mesh)
             if entry:
-                v = _cut(v, dim, mesh, entry[0])
-        out[k] = v
+                v = _cut(v, dim + lead, mesh, entry[0])
+        out[k] = v.reshape(-1, *v.shape[2:]) if lead else v
     return out
 
 
@@ -176,9 +199,10 @@ def shard_count(mesh: Optional[DeviceMesh], logical_axes: Sequence[Optional[str]
     ``mesh`` (1 for None)."""
     if mesh is None:
         return 1
-    return math.prod(_shard(mesh, e)[1] for e in spec_for(logical_axes, rules, mesh)
+    return math.prod(_shard(mesh, e)[1]
+                     for e in spec_for(logical_axes, effective_rules(mesh, rules), mesh)
                      if e is not None)
 
 
 __all__ = ["DEFAULT_RULES", "Rules", "spec_for", "local_shard", "shard_tree",
-           "shard_batch", "shard_count", "axis_dim", "check_rules"]
+           "shard_batch", "shard_count", "axis_dim", "check_rules", "effective_rules"]

@@ -1,7 +1,7 @@
 """ray_tpu_torch.train — the train step on one device or over a mesh of
-every axis but ``stage`` (PyTorch port of ray_tpu.train.step). Trainer,
-checkpoint and pipelined steps come in later slices (ROADMAP.md Queue
-A)."""
+any of its seven axes, the pipeline's ``stage`` among them (PyTorch port
+of ray_tpu.train.step). Trainer and checkpoint come in later slices
+(ROADMAP.md Queue A)."""
 
 from ray_tpu_torch.train.step import (
     AdamW,

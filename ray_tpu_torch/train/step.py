@@ -28,24 +28,35 @@ views of the stack in place.
 
 Under a ``mesh`` (ray_tpu_torch.parallel.build_mesh; JAX's positional
 order: ``init_state(cfg, opt, mesh)``, ``make_train_step(cfg, opt, mesh,
-rules)``) each rank holds its shard of the state (``state_shardings``):
-each leaf and its moments cut over ``fsdp`` on its embed dim, over
-``tensor`` on heads, kv_heads, mlp or vocab, and expert leaves over
-``expert``. ``run`` takes the global batch, as JAX's does, and keeps this
-rank's rows and sequence shard (``batch_sharding``); attention over a
-sequence axis above 1 is ring attention (``make_attn_fn``). The grads
-come out of the backward as shards (a leaf cut over fsdp: summed over
-the fsdp group by its gather's reduce-scatter) and are summed in place,
-one all-reduce a leaf, over the ranks that hold other tokens: (replica,
-data, sequence) for a leaf cut over fsdp, (replica, data, fsdp,
-sequence) for the rest, never twice over fsdp. ``grad_norm`` and the
-clip's norm are over the whole logical grads: each shard's squared norm
-divided by the number of ranks that hold that shard, summed over
-(fsdp, expert, tensor). AdamW updates the local shards. The numbers are
-those of the single-device step on the global batch. The mesh path runs
-its collectives whatever the axes' sizes, so a mesh of one rank runs it
-too. What the port does not take yet raises NotImplementedError naming
-its ROADMAP row (ray_tpu_torch/models/transformer.py ``check_mesh``).
+rules, donate, num_microbatches)``) each rank holds its shard of the
+state (``state_shardings``): each leaf and its moments cut over ``fsdp``
+on its embed dim, over ``tensor`` on heads, kv_heads, mlp or vocab,
+expert leaves over ``expert``, and the layer-stacked leaves' ``layers``
+dim over ``stage``. ``run`` takes the global batch, as JAX's does, and
+keeps this rank's rows and sequence shard (``batch_sharding``; under a
+pipeline, its share of each microbatch's rows); attention over a
+sequence axis above 1 is ring attention (``make_attn_fn``), inside each
+stage under a pipeline. With ``stage`` above 1 the layer stack runs as
+a GPipe pipeline of ``num_microbatches`` (default twice the stages,
+ray_tpu_torch/ops/pipeline.py); with ``stages`` above 1 and no mesh,
+every stage of such a pipeline runs in this process (the schedule on
+one device). The grads come out of the backward as shards (a leaf cut
+over fsdp: summed over the fsdp group by its gather's reduce-scatter)
+and are summed in place, one all-reduce a leaf, over the ranks that
+hold other tokens: (replica, data, sequence) for a leaf cut over fsdp,
+(replica, data, fsdp, sequence) for the rest, never twice over fsdp;
+and over ``stage`` for the leaves every stage holds (embed, unembed,
+ln_f), whose grads arise on the first stage (the lookup) and the last
+(the loss). ``grad_norm`` and the clip's norm are over the whole
+logical grads: each shard's squared norm divided by the number of
+ranks that hold that shard, summed over (fsdp, stage, expert, tensor).
+AdamW updates the local shards. The numbers are those of the
+single-device step on the global batch (under a pipeline, of the
+pipelined step: the same for a dense model; a MoE layer routes each
+microbatch on its own). The mesh path runs its collectives whatever the
+axes' sizes, so a mesh of one rank runs it too. What the port does not
+take raises NotImplementedError naming its ROADMAP row
+(ray_tpu_torch/models/transformer.py ``check_mesh``).
 """
 
 from __future__ import annotations
@@ -57,12 +68,13 @@ import torch
 
 from ray_tpu_torch.models.transformer import (
     Params, TransformerConfig, _default_attn, check_mesh, init_params, loss_fn,
-    param_axes, param_shapes, trainable_leaves,
+    microbatches, param_axes, param_shapes, trainable_leaves,
 )
 from ray_tpu_torch.parallel.collectives import all_reduce_, sum_partials
 from ray_tpu_torch.parallel.mesh import mesh_device
 from ray_tpu_torch.parallel.sharding import (
-    Rules, axis_dim, check_rules, shard_batch, shard_count, shard_tree, spec_for,
+    Rules, axis_dim, check_rules, effective_rules, shard_batch, shard_count, shard_tree,
+    spec_for,
 )
 
 TrainState = Dict[str, Any]
@@ -115,21 +127,23 @@ def _units(tree: Params) -> List[torch.Tensor]:
 
 
 def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
-                mesh=None):
+                mesh=None, num_microbatches: Optional[int] = None, stages: int = 1):
     """(loss, metrics, tree, grads): ``tree`` is ``params`` with each
     leaf a detached leaf that requires grad (a stacked leaf as its
     per-layer leaves, sharing its storage); ``grads`` are their grads in
     ``_flatten(tree)`` order, the order of ``_units(params)``. Under
     ``mesh`` (``batch`` this rank's part) the grads are summed in place
-    over the ranks that hold other tokens: each rank holds the grads of
-    the global loss, for its shard of each leaf."""
-    groups = check_mesh(mesh, cfg=cfg)
+    over the ranks that hold other tokens, and a leaf every stage holds
+    over the stages too: each rank holds the grads of the global loss,
+    for its shard of each leaf."""
+    groups = check_mesh(mesh, num_microbatches, cfg, stages)
     tree = _per_layer(params, torch.Tensor.detach)
     leaves = _flatten(tree)
     for t in leaves:
         t.requires_grad_()
     with torch.enable_grad():
-        loss, metrics = loss_fn(cfg, tree, batch, attn_fn=attn_fn, mesh=mesh)
+        loss, metrics = loss_fn(cfg, tree, batch, attn_fn=attn_fn, mesh=mesh,
+                                num_microbatches=num_microbatches, stages=stages)
         grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
     # LoRA's wi_a/wi_b are never read under MoE (as in JAX): they get the
     # zero grad jax.value_and_grad gives them. Any other unread leaf is a
@@ -144,11 +158,15 @@ def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
         # one layout for every path: a grad's norm sums in layout order, and
         # under a mesh each grad comes out of a collective contiguous
         grads[i] = grads[i].contiguous()
-    # a leaf cut over fsdp comes back summed over the fsdp group already
+    # a leaf cut over fsdp comes back summed over the fsdp group already;
+    # a layer leaf is its stage's alone, the others every stage's
     axes = param_axes(cfg)
-    cut = [axis_dim(_leaf(axes, n), "fsdp") is not None for n in names]
-    for fsdp, group in ((True, groups.peers), (False, groups.tokens)):
-        idx = [i for i, c in enumerate(cut) if c == fsdp]
+    sums = {(True, True): groups.peers, (False, True): groups.tokens,
+            (True, False): groups.stage_peers, (False, False): groups.stage_tokens}
+    kind = [(axis_dim(_leaf(axes, n), "fsdp") is not None, _leaf(axes, n)[0] == "layers")
+            for n in names]
+    for key, group in sums.items():
+        idx = [i for i, k in enumerate(kind) if k == key]
         for i, g in zip(idx, all_reduce_([grads[i] for i in idx], group)):
             grads[i] = g
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -156,17 +174,22 @@ def _flat_grads(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
 
 
 def value_and_grad(cfg: TransformerConfig, params: Params, batch, attn_fn=None,
-                   mesh=None, rules: Optional[Rules] = None
+                   mesh=None, rules: Optional[Rules] = None,
+                   num_microbatches: Optional[int] = None, *, stages: int = 1
                    ) -> Tuple[Tuple[torch.Tensor, Dict], Params]:
     """``((loss, metrics), grads)`` with ``grads`` shaped like ``params``
     (stacked leaves stacked again), as ``jax.value_and_grad(loss_fn,
     has_aux=True)`` gives them. Under ``mesh``, ``batch`` is the global
     batch (as the step's) and ``params`` this rank's shards: the metrics
-    and grads are the global loss's, a cut leaf's grad its shard. For
-    tests and checks; the step itself keeps the per-layer grads."""
+    and grads are the global loss's, a cut leaf's grad its shard. With a
+    pipeline (``stage`` above 1 or ``stages``), of the pipelined loss of
+    ``num_microbatches``. For tests and checks; the step itself keeps
+    the per-layer grads."""
     check_rules(rules)
+    groups = check_mesh(mesh, num_microbatches, cfg, stages)
     loss, metrics, tree, grads = _flat_grads(
-        cfg, params, shard_batch(mesh, batch, rules), attn_fn, mesh)
+        cfg, params, shard_batch(mesh, batch, rules, microbatches(groups, num_microbatches)),
+        attn_fn, mesh, num_microbatches, stages)
     it = iter(grads)  # grads come in _flatten(tree) order
 
     def fill(t):
@@ -264,6 +287,7 @@ def state_shardings(cfg: TransformerConfig, optimizer: AdamW, mesh,
     spec is not () holds this rank's shard."""
     check_mesh(mesh, cfg=cfg)
     check_rules(rules)
+    rules = effective_rules(mesh, rules)
     specs = _map(param_axes(cfg), lambda axes: spec_for(axes, rules, mesh))
     train = trainable_leaves(cfg, specs)
     return {"params": specs, "opt_state": {"mu": train, "nu": train, "count": ()},
@@ -279,10 +303,11 @@ def batch_sharding(mesh, rules: Optional[Rules] = None) -> Tuple:
 def make_attn_fn(cfg: TransformerConfig, mesh, rules: Optional[Rules] = None
                  ) -> Optional[Callable]:
     """Ring attention over the mesh's sequence group when the sequence
-    axis is above 1; None (the flash kernels on the whole sequence)
-    otherwise. K/V go round the ring un-expanded: the kernels read each
-    query head's KV head, where JAX's calls ``gqa_expand`` first. A mesh
-    with ``stage`` above 1 raises (ROADMAP.md Queue A item 4)."""
+    axis is above 1 (under a pipeline, inside each stage: the group's
+    ranks are one stage's); None (the flash kernels on the whole
+    sequence) otherwise. K/V go round the ring un-expanded: the kernels
+    read each query head's KV head, where JAX's calls ``gqa_expand``
+    first."""
     check_rules(rules)
     groups = check_mesh(mesh, cfg=cfg)
     return _default_attn(cfg, groups) if groups.n_seq > 1 else None
@@ -326,21 +351,26 @@ def _clone(tree):
 def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None,
                     rules: Optional[Rules] = None, donate: bool = True,
                     num_microbatches: Optional[int] = None, *, device=None,
-                    attn_fn=None) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+                    attn_fn=None, stages: int = 1
+                    ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """(state, batch) → (state, metrics), on one device or over ``mesh``
     (``batch`` the global batch). The state is updated in place and
     returned; with ``donate=False`` a copy of it is, and the input stays
     as it was. ``attn_fn(q,k,v)`` overrides attention (default:
-    ``make_attn_fn``'s, the flash kernels or the ring over them)."""
-    groups = check_mesh(mesh, num_microbatches, cfg)
+    ``make_attn_fn``'s, the flash kernels or the ring over them).
+    ``num_microbatches`` pipelines the layer stack under ``stage`` above
+    1 (ignored otherwise, as in JAX); ``stages`` above 1, with no mesh,
+    runs that many stages' pipeline in this process."""
+    groups = check_mesh(mesh, num_microbatches, cfg, stages)
     check_rules(rules)
     device = mesh_device(mesh, device)
     attn_fn = attn_fn or make_attn_fn(cfg, mesh, rules)
     # per unit (the order of _flatten(tree)): whether it trains, and how
-    # many ranks of the (fsdp, expert, tensor) group hold the same shard
-    # of it: its squared norm over that count, summed over the group, is
-    # the whole leaf's
-    meta = _map(param_shapes(cfg), lambda sf: torch.empty(sf[0], device="meta"))
+    # many ranks of the (fsdp, stage, expert, tensor) group hold the same
+    # shard of it: its squared norm over that count, summed over the
+    # group, is the whole leaf's
+    meta = shard_tree(mesh, _map(param_shapes(cfg), lambda sf: torch.empty(sf[0], device="meta")),
+                      param_axes(cfg), rules)
     names = _paths(_per_layer(meta))
     trains = set(_paths(_per_layer(trainable_leaves(cfg, meta))))
     keep_idx = [i for i, n in enumerate(names) if n in trains]
@@ -354,7 +384,9 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None,
             state = _clone(state)
         params = state["params"]
         _, metrics, tree, grads = _flat_grads(
-            cfg, params, shard_batch(mesh, _batch_to(batch, device), rules), attn_fn, mesh)
+            cfg, params, shard_batch(mesh, _batch_to(batch, device), rules,
+                                     microbatches(groups, num_microbatches)),
+            attn_fn, mesh, num_microbatches, stages)
         sq = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)).square()
         if groups.model is not None:
             sq = sum_partials(sq / holders, groups.model)
@@ -379,14 +411,16 @@ def _leaf(tree, name: str):
 def make_eval_step(cfg: TransformerConfig, mesh=None, rules: Optional[Rules] = None,
                    *, device=None) -> Callable:
     """(params, batch) → metrics, no grad; under ``mesh`` ``batch`` is the
-    global batch and the metrics are global."""
+    global batch and the metrics are global. Under ``stage`` above 1 the
+    whole batch is one microbatch: JAX's eval step runs the layer stack
+    unpipelined, so a MoE layer routes the whole batch."""
     attn = make_attn_fn(cfg, mesh, rules)
     device = mesh_device(mesh, device)
 
     @torch.no_grad()
     def run(params: Params, batch: Dict[str, Any]):
         _, metrics = loss_fn(cfg, params, shard_batch(mesh, _batch_to(batch, device), rules),
-                             attn_fn=attn, mesh=mesh)
+                             attn_fn=attn, mesh=mesh, num_microbatches=1)
         return metrics
 
     return run

@@ -21,8 +21,9 @@ from ray_tpu.parallel.mesh import MeshSpec, build_mesh
 from ray_tpu.train import step as JS
 from ray_tpu_torch import train as S
 from ray_tpu_torch.models import transformer as T
-from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.convert import params_from_jax, state_from_jax
 from ray_tpu_torch.parallel import AXIS_ORDER, spec_for
+from ray_tpu_torch.parallel.sharding import effective_rules
 
 ATOL, GRAD_ATOL = 2e-5, 5e-5
 LR, STEPS, WORLD = torch_ranks.LR, 3, 8
@@ -73,11 +74,13 @@ def items(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def jax_run(jcfg, mesh, jstate, batch, steps=STEPS, with_eval=True):
+def jax_run(jcfg, mesh, jstate, batch, steps=STEPS, with_eval=True, num_microbatches=None):
     """JAX's eval metrics at ``jstate`` (unless not ``with_eval``) and each
-    of ``steps`` steps' metrics; the params after them."""
+    of ``steps`` steps' metrics (pipelined in ``num_microbatches`` under a
+    stage axis); the params after them."""
     ev = JS.make_eval_step(jcfg, mesh)(jstate["params"], batch) if with_eval else {}
-    step = JS.make_train_step(jcfg, JS.default_optimizer(jcfg, lr=LR), mesh, donate=False)
+    step = JS.make_train_step(jcfg, JS.default_optimizer(jcfg, lr=LR), mesh, donate=False,
+                              num_microbatches=num_microbatches)
     metrics = []
     for _ in range(steps):
         jstate, m = step(jstate, batch)
@@ -87,14 +90,39 @@ def jax_run(jcfg, mesh, jstate, batch, steps=STEPS, with_eval=True):
             "state": jstate}
 
 
-def single_device(tcfg, np_params, batch, record_routing=False):
+def single_device(tcfg, np_params, batch, record_routing=False, stages=1,
+                  num_microbatches=None):
     """The port's single-device value_and_grad on the global batch: its
-    metrics, grads by path and (optionally) each MoE layer's routing."""
+    metrics, grads by path and (optionally) each MoE layer's routing.
+    With ``stages``, of the pipeline of that many stages run in one
+    process (``num_microbatches``)."""
     tbatch = torch_ranks.batch(batch["tokens"], batch.get("loss_mask"))
     with torch_ranks.record_routing(record_routing) as seen:
-        (_, m), grads = S.value_and_grad(tcfg, params_from_jax(np_params, tcfg, "cpu"), tbatch)
+        (_, m), grads = S.value_and_grad(tcfg, params_from_jax(np_params, tcfg, "cpu"), tbatch,
+                                         num_microbatches=num_microbatches, stages=stages)
     return {"metrics": {k: float(v) for k, v in m.items()}, "grads": dict(items(grads)),
             "routing": seen}
+
+
+def port_steps(tcfg, state, batch, steps=STEPS, **kw):
+    """``steps`` steps of the port's single-device step (``kw``: its
+    options, a pipeline run in one process among them) from ``state``
+    (numpy, as state_from_jax takes it): each step's metrics and the
+    params after them, by path.
+
+    The reference for params after a pipelined step: JAX's pipelined
+    step reaches its unpipelined step's params only within its own
+    reassociation noise, with 0.16% of ``debug``'s wq elements an Adam
+    step apart at data=2 x stage=2 x tensor=2 (more than
+    ``params_close`` allows), where the port's pipelined step puts
+    0.009% of them apart from JAX's unpipelined one
+    (tests/pipeline_numbers.py measures both)."""
+    st = state_from_jax(state, tcfg, device="cpu")
+    run = S.make_train_step(tcfg, S.default_optimizer(tcfg, lr=LR), device="cpu", **kw)
+    tbatch = torch_ranks.batch(batch["tokens"], batch.get("loss_mask"))
+    metrics = [{k: float(v) for k, v in run(st, tbatch)[1].items()} for _ in range(steps)]
+    return {"metrics": metrics,
+            "params": {p: t.numpy() for p, t in items(st["params"])}}
 
 
 def dp_world(preset, kw, tmp_path, references=True):
@@ -204,10 +232,12 @@ def design_collectives(cfg, units, masked, n_seq=1):
 
     - all_gather: per block run, each leaf cut over fsdp the block reads
       (wq, wk, wv, wo, wi_gate, wi_up, wo_mlp; MoE's router; LoRA's
-      wq_a, wv_a and, dense only, wi_a), and MoE's tokens; the embedding
+      wq_a, wv_a and, dense only, wi_a), and MoE's tokens (over the
+      sequence group, then the batch group); the embedding
       table twice (lookup and unembedding: unembed, or embed when tied);
       the sequence shards' first tokens for the loss;
-    - reduce_scatter: one per gather of a leaf, in the backward;
+    - reduce_scatter: one per gather of a leaf or of MoE's tokens, in the
+      backward;
     - all_reduce: per block run, attention's ``wo`` and the MLP's
       ``wo_mlp`` partials (MoE: the expert combine), but for the dense
       MLP's in the re-run, which stops once it has recomputed what the
@@ -227,8 +257,8 @@ def design_collectives(cfg, units, masked, n_seq=1):
     lora = (2 if moe else 3) if cfg.lora_rank else 0
     leaves = 7 + moe + lora
     ring = 0 if n_seq == 1 else R * 2 * (n_seq - 1) + 4 * n_seq - 2
-    return {"all_gather": R * L * (leaves + moe) + 3,
-            "reduce_scatter": L * (leaves + moe) + 2,
+    return {"all_gather": R * L * (leaves + 2 * moe) + 3,
+            "reduce_scatter": L * (leaves + 2 * moe) + 2,
             "all_reduce": (2 * R - (R - 1) * (not moe)) * L + (2 + lora) * L + 2 + 4
             + int(masked) + units + 1,
             "send": L * ring}
@@ -237,13 +267,15 @@ def design_collectives(cfg, units, masked, n_seq=1):
 def mesh_shard(tcfg, spec):
     """``shard(path, whole, rank)``: rank ``rank``'s shard of a whole leaf
     (numpy) of ``tcfg``'s params at the mesh ``spec`` (a sizes mapping),
-    ranks laid out as build_mesh lays them (a reshape in AXIS_ORDER)."""
+    ranks laid out as build_mesh lays them (a reshape in AXIS_ORDER); a
+    layer-stacked leaf cut over stage when it is above 1."""
     sizes = {a: spec.get(a, 1) for a in AXIS_ORDER}
     axes = dict(items(T.param_axes(tcfg)))
+    rules = effective_rules(sizes)
 
     def shard(path, a, rank):
         coord = dict(zip(AXIS_ORDER, np.unravel_index(rank, [sizes[x] for x in AXIS_ORDER])))
-        for dim, entry in enumerate(spec_for(axes[path], None, sizes)):
+        for dim, entry in enumerate(spec_for(axes[path], rules, sizes)):
             if entry is None:
                 continue
             index, count = 0, 1
@@ -259,3 +291,51 @@ def mesh_shard(tcfg, spec):
 def whole(path, a, rank):
     """No leaf is cut over data."""
     return a
+
+
+CAPACITY = {"cf125": 1.25, "cf05": 0.5}  # case name → moe_debug's capacity factor
+
+
+def moe_world(spec, tmp_path, num_microbatches=None, mask=None, cases=tuple(CAPACITY)):
+    """moe_debug at the mesh ``spec`` at the capacity factors of
+    ``cases`` (names of CAPACITY: 1.25, and 0.5 with forced drops), from
+    one JAX init: each case's ranks (spawned first),
+    JAX's sharded step (pipelined in ``num_microbatches`` under stage) and
+    eval, and the port's single-device grads and routing on the global
+    batch; under stage also those of the port's pipeline run in one
+    process (its stages in turn), whose MoE layers route each microbatch
+    on its own, as JAX's pipeline does (with its params after the steps:
+    ``port_steps``)."""
+    world = torch_ranks.World(WORLD, tmp_path)
+    try:
+        jcfg, _ = configs("moe_debug")
+        mesh = build_mesh(MeshSpec(**spec))
+        jstate = JS.init_state(jcfg, JS.default_optimizer(jcfg, lr=LR), mesh, seed=0)
+        state0 = np_state(jstate)
+        batch = {"tokens": tokens(jcfg.vocab_size)}
+        if mask is not None:
+            batch["loss_mask"] = mask
+        world.send({name: ("train", dict(preset="moe_debug", overrides={"capacity_factor": cf},
+                                         spec=spec, state=state0, tokens=batch["tokens"],
+                                         mask=mask, steps=STEPS, routing=True,
+                                         num_microbatches=num_microbatches))
+                    for name, cf in CAPACITY.items() if name in cases})
+        ref = {}
+        for name in cases:
+            cf = CAPACITY[name]
+            jc, tc = configs("moe_debug", capacity_factor=cf)
+            # JAX's eval outside a pipeline is its step 0's metrics (the same
+            # params and routing): compiled only under stage, where its eval
+            # routes the whole batch and its step each microbatch
+            ref[name] = jax_run(jc, mesh, jstate, batch, with_eval=spec.get("stage", 1) > 1,
+                                num_microbatches=num_microbatches)
+            ref[name]["tcfg"] = tc
+            ref[name]["single"] = single_device(tc, state0["params"], batch, True)
+            if spec.get("stage", 1) > 1:
+                ref[name]["staged"] = single_device(tc, state0["params"], batch, True,
+                                                    spec["stage"], num_microbatches)
+                ref[name]["staged_steps"] = port_steps(tc, state0, batch, stages=spec["stage"],
+                                                       num_microbatches=num_microbatches)
+        return {"ranks": world.results(), "jax": ref, "spec": spec}
+    finally:
+        world.stop()

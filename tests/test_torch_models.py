@@ -182,6 +182,13 @@ def test_presets_match_jax(name):
 
 
 def test_unported_paths_raise():
+    """What the port does not take raises, naming its ROADMAP row: the
+    cached (serving) forward of a MoE config, and a MoE config under
+    stage and sequence together (ROADMAP.md Queue C); every other mesh
+    passes the port's checks (a MeshSpec then needs to be a DeviceMesh),
+    ``num_microbatches`` without stages is ignored, as in JAX, and a
+    pipeline of two stages in this process (``stages``) gives the
+    unpipelined loss."""
     moe = T.config("moe_debug", dtype=torch.float32)
     params = T.init_params(moe, torch.Generator().manual_seed(0), "cpu")
     cache = init_cache(moe, 1, 8, device="cpu")
@@ -189,21 +196,33 @@ def test_unported_paths_raise():
     pos = torch.arange(4)[None, :]
     with pytest.raises(NotImplementedError, match="dense-only"):
         forward_cached(moe, params, toks, pos, cache, None, prefill=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue C, MoE under stage and"):
+        T.forward(moe, params, toks, mesh=MeshSpec(stage=2, sequence=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue C, MoE under stage and"):
+        T.loss_fn(moe, params, {"tokens": toks}, mesh=MeshSpec(stage=2, sequence=2))
     dense = T.config("debug", dtype=torch.float32)
-    params = T.init_params(dense, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    # meshes the port does not take yet, by their ROADMAP.md Queue A item:
-    # stage for every config; fsdp, tensor and sequence for MoE only
-    for cfg, spec, item in ((moe, MeshSpec(fsdp=2), "4b"), (moe, MeshSpec(tensor=2), "4b"),
-                            (moe, MeshSpec(sequence=2), "4b"),
-                            (dense, MeshSpec(stage=2), "4 ")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A item {item}"):
-            T.forward(cfg, params, toks, mesh=spec)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A item {item}"):
-            T.loss_fn(cfg, params, {"tokens": toks}, mesh=spec)
+    dparams = T.init_params(dense, torch.Generator().manual_seed(0), "cpu")
+    # ported now: MoE under fsdp, tensor and sequence, any config under stage
+    for cfg, p_, spec in ((moe, params, MeshSpec(fsdp=2)), (moe, params, MeshSpec(tensor=2)),
+                          (moe, params, MeshSpec(sequence=2)), (dense, dparams, MeshSpec(stage=2)),
+                          (moe, params, MeshSpec(stage=2, expert=2))):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            T.forward(cfg, p_, toks, mesh=spec)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            T.loss_fn(cfg, p_, {"tokens": toks}, mesh=spec)
     with pytest.raises(ValueError, match="tensor=4 must divide"):  # 2 KV heads
-        T.loss_fn(dense, params, {"tokens": toks}, mesh=MeshSpec(tensor=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 4"):
-        T.loss_fn(dense, params, {"tokens": toks}, num_microbatches=2)
+        T.loss_fn(dense, dparams, {"tokens": toks}, mesh=MeshSpec(tensor=4))
+    with pytest.raises(ValueError, match="stage=3 must divide layers"):
+        T.loss_fn(dense, dparams, {"tokens": toks}, mesh=MeshSpec(stage=3))
+    with pytest.raises(ValueError, match="pass no mesh"):
+        T.loss_fn(dense, dparams, {"tokens": toks}, mesh=MeshSpec(), stages=2)
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(0).randint(0, 512, (4, 16)))}
+    plain = T.loss_fn(dense, dparams, batch)[0]
+    assert torch.equal(T.forward(dense, dparams, batch["tokens"], num_microbatches=2),
+                       T.forward(dense, dparams, batch["tokens"]))
+    np.testing.assert_allclose(float(T.loss_fn(dense, dparams, batch, num_microbatches=2,
+                                               stages=2)[0]), float(plain), atol=FP32_ATOL)
+    with pytest.raises(ValueError, match="not divisible by microbatches 3"):
+        T.loss_fn(dense, dparams, batch, num_microbatches=3, stages=2)
     with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is a DeviceMesh
-        T.forward(dense, params, toks, mesh=MeshSpec())
+        T.forward(dense, dparams, toks, mesh=MeshSpec())

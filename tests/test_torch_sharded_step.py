@@ -182,13 +182,17 @@ def test_collectives_per_step(world):
 
 
 @pytest.mark.parametrize("axis,item", [("fsdp", "4b"), ("tensor", "4b"), ("sequence", "4b"),
-                                       ("stage", "4 "), ("num_microbatches", "4 ")])
+                                       ("stage", "4 "), ("num_microbatches", "4 "),
+                                       ("stage+sequence", "C")])
 def test_unported_axes_raise(world, axis, item):
-    """An axis above 1 the port does not take yet for a MoE config (and
-    microbatches) raises NotImplementedError from every entry point,
-    naming its ROADMAP.md Queue A item: fsdp, tensor and sequence are
-    ported for dense and LoRA configs only (item 4b brings MoE under
-    them), stage and microbatches come with the pipeline (item 4)."""
+    """moe_debug from every entry point under each mesh the port took with
+    ROADMAP.md Queue A ``item``: fsdp, tensor and sequence (item 4b, MoE
+    under them) and stage and microbatches (item 4, the pipeline) now run;
+    under stage and sequence together (``item`` C) it raises
+    NotImplementedError naming its Queue C row."""
     got = {k: v for k, v in world["ranks"][0]["unported"].items() if k[0] == axis}
-    assert got and all(v is not None and f"ROADMAP.md Queue A item {item}" in v
-                       for v in got.values()), got
+    if item == "C":
+        assert got and all(v is not None and "ROADMAP.md Queue C, MoE under stage and "
+                           "sequence" in v for v in got.values()), got
+    else:
+        assert got and all(v is None for v in got.values()), got

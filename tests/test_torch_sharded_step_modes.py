@@ -8,8 +8,9 @@ step, dense ``debug`` at two of tests/test_models_train.py's layouts:
 - ``fsdp8`` (test_grad_accumulation_sharding_kept): after the steps each
   rank holds 1/8 of ``embed``'s embed dim;
 
-and the meshes still unported (stage, microbatches, MoE under sequence,
-fsdp or tensor) raising, naming their ROADMAP row.
+and moe_debug from every entry point under the meshes the pipeline slice
+brought (fsdp, tensor, sequence, stage, microbatches), running, and
+under stage and sequence together, raising, naming its ROADMAP row.
 
 One of two files of the new layouts, split only to keep each under 20 s
 (tests/test_torch_sharded_step_fsdp_tp.py: fsdp4xtp2, LoRA); each runs
@@ -124,11 +125,17 @@ def test_collectives_per_step(world):
 
 
 @pytest.mark.parametrize("axis,item", [("fsdp", "4b"), ("tensor", "4b"), ("sequence", "4b"),
-                                       ("stage", "4 "), ("num_microbatches", "4 ")])
+                                       ("stage", "4 "), ("num_microbatches", "4 "),
+                                       ("stage+sequence", "C")])
 def test_unported_raise(world, axis, item):
-    """moe_debug under fsdp, tensor or sequence (item 4b), and any config
-    under stage or with microbatches (item 4), raise from every entry
-    point."""
+    """moe_debug from every entry point under each mesh the port took with
+    ROADMAP.md Queue A ``item``: fsdp, tensor and sequence (item 4b, MoE
+    under them) and stage and microbatches (item 4, the pipeline) now run;
+    under stage and sequence together (``item`` C) it raises
+    NotImplementedError naming its Queue C row."""
     got = {k: v for k, v in world["ranks"][0]["unported"].items() if k[0] == axis}
-    assert got and all(v is not None and f"ROADMAP.md Queue A item {item}" in v
-                       for v in got.values()), got
+    if item == "C":
+        assert got and all(v is not None and "ROADMAP.md Queue C, MoE under stage and "
+                           "sequence" in v for v in got.values()), got
+    else:
+        assert got and all(v is None for v in got.values()), got

@@ -198,14 +198,34 @@ def _unflat(flat, like, prefix=""):
 
 
 def test_unported_step_options_raise():
+    """The step's options the port takes since the pipeline: a mesh with
+    stage (passes the checks; a MeshSpec then needs to be a DeviceMesh),
+    ``num_microbatches`` without stages (ignored, as in JAX: the same
+    step), a pipeline of two stages in this process (the unpipelined
+    step's numbers, dense); and what still raises, naming its ROADMAP
+    row: a MoE config under stage and sequence together."""
     _, tcfg = _configs("dense")
     opt = S.default_optimizer(tcfg)
-    for kw, item in (({"mesh": TMeshSpec(stage=2, tensor=2)}, "4 "),
-                     ({"num_microbatches": 2}, "4 ")):
-        with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-            S.make_train_step(tcfg, opt, device="cpu", **kw)
-    # fsdp, tensor and sequence are ported for dense and LoRA configs, not MoE
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        S.make_train_step(tcfg, opt, TMeshSpec(stage=2, tensor=2), device="cpu")
+    toks = _tokens(tcfg.vocab_size, b=4)
+    runs = {}
+    for name, kw in (("plain", {}), ("micro", {"num_microbatches": 2}),
+                     ("staged", {"num_microbatches": 2, "stages": 2})):
+        st = S.init_state(tcfg, opt, seed=0, device="cpu")
+        run = S.make_train_step(tcfg, opt, device="cpu", **kw)
+        runs[name] = [{k: float(v) for k, v in run(st, {"tokens": toks})[1].items()}
+                      for _ in range(2)]
+    assert runs["micro"] == runs["plain"]
+    for a, b in zip(runs["staged"], runs["plain"]):
+        for k in ("loss", "accuracy", "grad_norm", "tokens"):
+            np.testing.assert_allclose(a[k], b[k], atol=ATOL, err_msg=k)
+    # MoE under fsdp, tensor and sequence is ported; under stage and
+    # sequence together it is not
     _, moe = _configs("moe")
-    with pytest.raises(NotImplementedError, match="Queue A item 4b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         S.make_train_step(moe, S.default_optimizer(moe), TMeshSpec(fsdp=4, tensor=2),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue C, MoE under stage"):
+        S.make_train_step(moe, S.default_optimizer(moe), TMeshSpec(stage=2, sequence=2),
                           device="cpu")

@@ -1,5 +1,5 @@
 """The ranks of the port's multi-rank tests (tests/test_torch_sharded_step*.py,
-tests/test_torch_ring_attention.py).
+tests/test_torch_pipeline*.py, tests/test_torch_ring_attention.py).
 
 ``World`` spawns one group of gloo ranks on the CPU, brought up over a
 FileStore in a temporary directory (no TCP port), and runs every case of
@@ -29,10 +29,11 @@ import torch.multiprocessing as mp
 from ray_tpu_torch import train as S
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.convert import params_from_jax, state_from_jax
+from ray_tpu_torch.ops.pipeline import pipelined_layers
 from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import (
     DEFAULT_RULES, MeshSpec, build_mesh, local_shard, mesh_groups, read_collectives,
-    reset_collectives,
+    reset_collectives, shard_batch,
 )
 
 LR = 3e-4
@@ -125,10 +126,12 @@ def batch(tokens, mask=None):
     return out
 
 
-def train(preset, overrides, spec, state, tokens, mask=None, steps=3, routing=False):
+def train(preset, overrides, spec, state, tokens, mask=None, steps=3, routing=False,
+          num_microbatches=None):
     """From the JAX train state ``state`` (numpy, state_from_jax under the
     mesh): the grads of the global loss at it (value_and_grad under the
-    mesh; with ``routing``, each MoE layer's routing of that forward),
+    mesh, pipelined in ``num_microbatches`` under stage; with
+    ``routing``, each MoE layer's routing of that forward),
     make_eval_step's metrics at it, then ``steps`` steps of
     make_train_step, with each step's metrics and collectives by kind,
     the params after the last step, and whether the leaves the step must
@@ -142,13 +145,15 @@ def train(preset, overrides, spec, state, tokens, mask=None, steps=3, routing=Fa
                       "mu": _shapes(st["opt_state"]["mu"]),
                       "nu": _shapes(st["opt_state"]["nu"])}}
     with record_routing(routing) as seen:
-        (_, m), grads = S.value_and_grad(cfg, st["params"], data, mesh=mesh)
+        (_, m), grads = S.value_and_grad(cfg, st["params"], data, mesh=mesh,
+                                         num_microbatches=num_microbatches)
     out.update(grads=_np(grads), grad_metrics={k: float(v) for k, v in m.items()},
                routing=seen)
     out["eval"] = {k: float(v) for k, v in
                    S.make_eval_step(cfg, mesh, DEFAULT_RULES)(st["params"], data).items()}
     before = _np(st["params"])
-    run = S.make_train_step(cfg, opt, mesh, DEFAULT_RULES)  # JAX's positional order
+    # JAX's positional order
+    run = S.make_train_step(cfg, opt, mesh, DEFAULT_RULES, True, num_microbatches)
     out["metrics"], out["collectives"] = [], []
     for _ in range(steps):
         reset_collectives()
@@ -211,34 +216,68 @@ def init(preset, overrides, spec, seed=0):
                 "wi_gate")}
 
 
+UNPORTED_MESHES = {"fsdp": {"fsdp": 8}, "tensor": {"data": 4, "tensor": 2},
+                   "sequence": {"sequence": 8}, "stage": {"data": 4, "stage": 2},
+                   "stage+sequence": {"stage": 2, "sequence": 4}}
+
+
 def unported(preset):
-    """The error each mesh the port does not take for the MoE ``preset``
-    raises, from every entry point: (axis, entry point) → the message, or
-    None where it runs (fsdp, tensor and sequence above 1 for MoE; stage
-    and microbatches for every config)."""
+    """The meshes the port took only with the pipeline slice, and the one
+    it does not take, for the MoE ``preset`` (8 ranks), from every entry
+    point: (axis, entry point) → the NotImplementedError's message, or
+    None where it runs (``loss_fn`` on init_state's params and a batch of
+    16 x 16 tokens). fsdp, tensor, sequence and stage run, and so does
+    ``num_microbatches`` at data=8 (ignored without stages, as in JAX);
+    "stage+sequence" raises, naming its ROADMAP row."""
     cfg = _cfg(preset, {})
     opt = S.default_optimizer(cfg)
-    world = dist.get_world_size()
-    toks = torch.zeros((world, 8), dtype=torch.long)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (16, 16)))
     out = {}
-    for axis in ("fsdp", "tensor", "sequence", "stage"):
-        mesh = build_mesh(MeshSpec(**{axis: world}), "cpu")
+    for axis, spec in UNPORTED_MESHES.items():
+        mesh = build_mesh(MeshSpec(**spec), "cpu")
+
+        def loss():
+            st = S.init_state(cfg, opt, mesh)
+            m = 2 * spec["stage"] if "stage" in spec else None  # the default microbatches
+            T.loss_fn(cfg, st["params"], shard_batch(mesh, {"tokens": toks}, None, m), mesh=mesh)
+
         calls = {"init_state": lambda: S.init_state(cfg, opt, mesh),
                  "make_train_step": lambda: S.make_train_step(cfg, opt, mesh),
                  "make_eval_step": lambda: S.make_eval_step(cfg, mesh),
-                 "loss_fn": lambda: T.loss_fn(cfg, {}, {"tokens": toks}, mesh=mesh)}
+                 "loss_fn": loss}
         for name, call in calls.items():
             try:
                 call()
                 out[(axis, name)] = None
             except NotImplementedError as e:
                 out[(axis, name)] = str(e)
-    mesh = build_mesh(MeshSpec(data=world), "cpu")
+    mesh = build_mesh(MeshSpec(data=dist.get_world_size()), "cpu")
     try:
         S.make_train_step(cfg, opt, mesh, num_microbatches=2)
         out[("num_microbatches", "make_train_step")] = None
     except NotImplementedError as e:
         out[("num_microbatches", "make_train_step")] = str(e)
+    return out
+
+
+def divisibility(spec):
+    """The ValueErrors of a pipeline at ``spec`` whose microbatches do not
+    divide the batch: the step at 3 microbatches of 8 rows, and
+    pipelined_layers on 7 rows (tests/test_moe_pipeline.py's call)."""
+    cfg = _cfg("debug", {})
+    mesh = build_mesh(MeshSpec(**spec), "cpu")
+    opt = S.default_optimizer(cfg)
+    out = {}
+    try:
+        S.make_train_step(cfg, opt, mesh, None, True, 3)(
+            S.init_state(cfg, opt, mesh), {"tokens": np.zeros((8, 8), np.int32)})
+    except ValueError as e:
+        out["step"] = str(e)
+    try:
+        pipelined_layers(lambda p, x, pos: x, [{"w": torch.zeros(3)}], torch.zeros(7, 4, 8),
+                         torch.arange(4), 3, 2)
+    except ValueError as e:
+        out["pipelined_layers"] = str(e)
     return out
 
 
