@@ -10,7 +10,14 @@ at full width, each with the kernels' launch counts set to 0 just
 before it and read just after:
 
 - serving: llama3_8b (all 32 layers, random bf16 weights from seed 0)
-  through ray_tpu_torch.llm.LLMEngine and ContinuousLLMEngine;
+  through ray_tpu_torch.llm.LLMEngine and ContinuousLLMEngine, and one
+  prompt through Generator.generate_stream;
+- paged serving: the same model and prompts through
+  ray_tpu_torch.models.paged_kv.PagedBatcher (tokens held equal to the
+  slot-dense batcher's), 8 requests over a shared 1,024-token prefix
+  (prefix hits and prefilled tokens exact, the warm prefill's logits
+  held against the cold one's) and an overcommitted pool (preemptions,
+  every request complete); decode at batch 8 timed paged against dense;
 - training: llama2_7b_lora (all 32 layers, bf16 params, B=8 x 2048,
   remat) through ray_tpu_torch.train.make_train_step, 2 warm-up and 5
   timed steps, after a two-layer fp32 step held against the same step
@@ -41,7 +48,9 @@ before it and read just after:
   ray_tpu_torch/ops/pipeline.py that the P2P path feeds across ranks): 2
   warm-up and 3 timed steps, step 0's loss and grad norm held against
   the unpipelined step's within twice that step's own distance from the
-  same step in fp32 (measured here).
+  same step in fp32 (measured here);
+- collectives: ray_tpu_torch.util.collective over NCCL, a world of one:
+  every op on CUDA tensors against numpy, a 256 MB bf16 allreduce timed.
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -55,6 +64,7 @@ a CUDA device it exits 1 before doing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -85,13 +95,16 @@ ATTN_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
     ("train_step", 8, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
     # the MoE training step's attention (mixtral_8x7b, GQA 32/8); timed
     ("mixtral_train", 8, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
+    # the paged batcher's warm prefill: the remainder's largest bucket
+    # over a 1,024-token reused prefix, no mask (paged_prefix); timed
+    ("paged_warm", 1, 512, 1024, 32, 8, 128, False, torch.bfloat16),
     ("ragged", 2, 100, 100, 4, 4, 64, False, torch.float32),
     ("sq_ne_sk", 2, 64, 192, 8, 4, 32, True, torch.float32),
     # their bf16 twins: tensor-core tiles at D=64 and D=32, ragged ends
     ("ragged_bf16", 2, 100, 100, 4, 4, 64, False, torch.bfloat16),
     ("sq_ne_sk_bf16", 2, 64, 192, 8, 4, 32, True, torch.bfloat16),
 ]
-TIMED_ATTN = {"prefill": 20, "train_step": 5, "mixtral_train": 5}  # shape: launches timed
+TIMED_ATTN = {"prefill": 20, "train_step": 5, "mixtral_train": 5, "paged_warm": 20}  # shape: launches timed
 
 
 BWD_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal, dtype)
@@ -138,6 +151,16 @@ MESH_TIMED = 3  # timed steps of the sharded MoE step (after TRAIN_WARMUP)
 # batch of 8 as 8 microbatches of one row
 PIPE_STAGES, PIPE_MICRO = 4, 8
 RING_N = 4  # ranks of the ring driven on one card
+# the paged batcher (llama3_8b, bf16): pages of 64 tokens, 8 slots of
+# MAX_LEN, so 1 + 8 * 32 = 257 pages; the prefix phase shares a prompt of
+# 1,024 tokens (16 pages) between 8 requests with suffixes of 100-400
+PAGE_SIZE = 64
+PREFIX_TOKENS = 1024
+SUFFIX_TOKENS = np.linspace(100, 400, 8).astype(int).tolist()
+# the overcommitted pool: 16 pages for 8 requests of 60-120 prompt tokens
+# and OVERCOMMIT_TOKENS each, which end on 2-3 pages each
+OVERCOMMIT_PAGES, OVERCOMMIT_TOKENS, OVERCOMMIT_PROMPTS = 1 + 16, 64, (60, 120)
+COLLECTIVE_BYTES = 256 * 2 ** 20  # the timed bf16 allreduce
 # (name, B, S of the whole sequence, H, Hkv, D, causal, reference): llama3_8b's
 # attention (long context is what the sequence axis is for), bf16; the
 # ring held against one flash call over the whole sequence, or against
@@ -228,6 +251,7 @@ def profiled(fn, top: int = 8):
 
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "device_activities": len(spans),
             "device_ms_by_kind": by_kind, "flash_kernels": members(KINDS[0][1], 80),
             "index_kernels": members(KINDS[2][1], 120),
             "nccl_kernels": members(KINDS[3][1], 80),
@@ -378,9 +402,28 @@ def serving_phases(kernels) -> dict:
                   "flash_fwd_launches": launches_cont})
             if stats["finished"] != len(prompts8) or launches_cont != cfg.layers * stats["admitted"]:
                 raise AssertionError(f"continuous engine: {stats}, {launches_cont} launches")
+        with phase("generate_stream"):
+            # Generator.generate_stream: one prompt, one prefill call
+            before = A.flash_fwd_launches
+            streamed = list(engine.generator.generate_stream(ids4[0], greedy))
+            torch.cuda.synchronize()
+            launches_stream = A.flash_fwd_launches - before
+            emit({"stream_tokens": len(streamed), "flash_fwd_launches": launches_stream})
+            if len(streamed) != MAX_TOKENS or launches_stream != cfg.layers:
+                raise AssertionError(f"generate_stream: {len(streamed)} tokens, "
+                                     f"{launches_stream} launches")
         launches = read_launches(A)
         kernels["flash_fwd"]["launches"] = launches["flash_fwd"]
         # ---- end of the main path ------------------------------------
+
+        with phase("generate_stream_vs_generate"):
+            with torch.no_grad():
+                ref = engine.generator.generate([ids4[0]], greedy)[0]
+            emit({"stream_equals_generate": streamed == ref})
+            if streamed != ref:
+                raise AssertionError(f"generate_stream {streamed} != generate {ref}")
+
+        paged = paged_phases(cfg, params, [tok.encode(p) for p in prompts8], batcher, greedy)
 
         with phase("serving_times"):
             gen_ = engine.generator
@@ -438,8 +481,297 @@ def serving_phases(kernels) -> dict:
     finally:
         if batcher is not None:
             batcher.shutdown()
+    return launches, paged
+
+
+
+def timed_steps(step, n: int) -> float:
+    """Host ms per call of ``step`` over ``n`` calls, synchronised."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def first_token_s(batcher, prompt, sampling):
+    """(seconds from submit_stream to its first token, all its tokens)."""
+    t0 = time.perf_counter()
+    stream = batcher.submit_stream(prompt, sampling)
+    first = next(stream)
+    ttft = time.perf_counter() - t0
+    return ttft, [first, *stream]
+
+
+def paged_phases(cfg, params, ids8, dense, greedy) -> dict:
+    """The paged serving path: ray_tpu_torch.models.paged_kv.PagedBatcher
+    on llama3_8b (``params``) with the flash launches counted from 0
+    around paged_engine, paged_prefix and paged_overcommit. Every flash
+    launch is a prefill's: L for a cold one, 2·L for one over a reused
+    prefix (recorded per call). Then the warm prefill's logits against
+    the cold one's, and decode ms/token paged against the slot-dense
+    ``dense`` batcher at batch 8. Returns the path's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.models.decoding import forward_cached, init_cache
+    from ray_tpu_torch.models.paged_kv import PagedBatcher, prefix_keys
+    from ray_tpu_torch.models.transformer import config
+    from ray_tpu_torch.ops import attention as A
+
+    L = cfg.layers
+
+    def recording(pb):
+        """Record the prefix length of each prefill ``pb`` runs."""
+        prefills, plain = [], pb._prefill
+
+        def spy(tokens, length, prefix_pages):
+            prefills.append(len(prefix_pages) * pb.page_size)
+            return plain(tokens, length, prefix_pages)
+
+        pb._prefill = spy
+        return prefills
+
+    def expected_launches(prefills):
+        return sum(L if p == 0 else 2 * L for p in prefills)
+
+    with phase("paged_dense_reference"):
+        want = [f.result(timeout=600) for f in [dense.submit(i, greedy) for i in ids8]]
+
+    pb = over = None
+    try:
+        pb = PagedBatcher(cfg, params, max_len=MAX_LEN, slots=8, page_size=PAGE_SIZE,
+                          seed=SEED, device="cuda")
+        prefills = recording(pb)
+        ptrs = (pb.pool_k.data_ptr(), pb.pool_v.data_ptr())
+        pool_bytes = 2 * pb.pool_k.numel() * pb.pool_k.element_size()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the paged path: counts from 0, read right after --------
+        reset_launches(A)
+        with phase("paged_engine"):
+            t0 = time.perf_counter()
+            outs = [f.result(timeout=600) for f in [pb.submit(i, greedy) for i in ids8]]
+            wall_s = time.perf_counter() - t0
+            launches = A.flash_fwd_launches
+            row = {"paged_s": wall_s, "stats": dict(pb.stats), "pages": pb.kv.num_pages,
+                   "pool_bytes": pool_bytes, "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "flash_fwd_launches": launches, "prefill_prefix_lens": list(prefills),
+                   "tokens_equal_dense": outs == want}
+            emit(row)
+            if outs != want:
+                raise AssertionError(f"paged tokens differ from the slot-dense batcher's: "
+                                     f"{[i for i, (a, b) in enumerate(zip(outs, want)) if a != b]}")
+            if launches != expected_launches(prefills) or prefills != [0] * len(ids8):
+                raise AssertionError(f"paged_engine: {launches} launches for prefills {prefills}")
+
+        with phase("paged_prefix"):
+            rng = np.random.RandomState(SEED + 2)
+            prefix = rng.randint(0, cfg.vocab_size, PREFIX_TOKENS).tolist()
+            suffixes = [[100 + i, *rng.randint(0, cfg.vocab_size, n - 1).tolist()]
+                        for i, n in enumerate(SUFFIX_TOKENS)]  # distinct first tokens
+            prompts = [prefix + sfx for sfx in suffixes]
+            stats0, done0 = dict(pb.stats), len(prefills)
+            cold_ttft, first_out = first_token_s(pb, prompts[0], greedy)
+            with ThreadPoolExecutor(len(prompts) - 1) as ex:
+                warm = list(ex.map(lambda p: first_token_s(pb, p, greedy), prompts[1:]))
+            hits = pb.stats["prefix_hit_tokens"] - stats0["prefix_hit_tokens"]
+            prefilled = pb.stats["prefill_tokens"] - stats0["prefill_tokens"]
+            want_prefilled = len(prompts[0]) + sum(SUFFIX_TOKENS[1:])
+            # one more warm request alone: the TTFT to hold against the cold one
+            alone = [200, *suffixes[0][1:]]
+            warm_alone_ttft, _ = first_token_s(pb, prefix + alone, greedy)
+            row = {"prefix_tokens": PREFIX_TOKENS, "suffix_tokens": SUFFIX_TOKENS,
+                   "prefix_hit_tokens": hits, "want_prefix_hit_tokens": 7 * PREFIX_TOKENS,
+                   "prefill_tokens": prefilled, "want_prefill_tokens": want_prefilled,
+                   "ttft_cold_ms": 1e3 * cold_ttft, "ttft_warm_alone_ms": 1e3 * warm_alone_ttft,
+                   "ttft_warm_concurrent_ms": [1e3 * t for t, _ in warm],
+                   "prefill_prefix_lens": prefills[done0:],
+                   "completion_tokens": [len(first_out)] + [len(o) for _, o in warm],
+                   "clock": "host, submit to first streamed token"}
+            emit(row)
+            if hits != 7 * PREFIX_TOKENS or prefilled != want_prefilled:
+                raise AssertionError(f"prefix reuse: {row}")
+            if any(len(o) != MAX_TOKENS for o in [first_out] + [o for _, o in warm]):
+                raise AssertionError(f"paged_prefix completions malformed: {row}")
+
+        with phase("paged_overcommit"):
+            over = PagedBatcher(cfg, params, max_len=MAX_LEN, slots=8, page_size=PAGE_SIZE,
+                                seed=SEED, num_pages=OVERCOMMIT_PAGES, device="cuda")
+            over_prefills = recording(over)
+            rng = np.random.RandomState(SEED + 3)
+            prompts_o = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
+                         for n in np.linspace(*OVERCOMMIT_PROMPTS, 8)]
+            sp = dataclasses.replace(greedy, max_tokens=OVERCOMMIT_TOKENS)
+            t0 = time.perf_counter()
+            outs_o = [f.result(timeout=600) for f in [over.submit(p, sp) for p in prompts_o]]
+            row = {"pages": OVERCOMMIT_PAGES, "max_tokens": OVERCOMMIT_TOKENS,
+                   "s": time.perf_counter() - t0, "stats": dict(over.stats),
+                   "lengths": [len(o) for o in outs_o], "prefills": len(over_prefills),
+                   "free_pages_after": len(over.kv.free)}
+            emit(row)
+            if (over.stats["preempted"] < 1 or any(len(o) != OVERCOMMIT_TOKENS for o in outs_o)
+                    or len(over.kv.free) != OVERCOMMIT_PAGES - 1):
+                raise AssertionError(f"overcommit: {row}")
+        launches = read_launches(A)
+        want_launches = expected_launches(prefills) + expected_launches(over_prefills)
+        emit({"paged_path_launches": launches, "expected_flash_fwd": want_launches})
+        if launches["flash_fwd"] != want_launches or launches["flash_bwd_dq"] or \
+                launches["flash_bwd_dkv"]:
+            raise AssertionError(f"paged path launched {launches}, expected {want_launches}")
+        if (pb.pool_k.data_ptr(), pb.pool_v.data_ptr()) != ptrs:
+            raise AssertionError("the paged pool moved")
+        # ---- end of the paged path ------------------------------------
+
+        with phase("paged_prefix_logits"):
+            # the warm continuation prefill (two kernel calls merged) held
+            # against the cold prefill of the same prompt: within twice the
+            # cold bf16 path's own distance from its fp32 run, + 1e-4
+            prompt = prompts[1]
+            n = len(prompt)
+            pages = [pb.kv.prefix_map[k] for k in prefix_keys(prompt, PAGE_SIZE)[:PREFIX_TOKENS // PAGE_SIZE]]
+            rem = prompt[PREFIX_TOKENS:]
+            cfg32 = config(cfg, dtype=torch.float32)
+
+            def padded(toks):
+                out = torch.zeros((1, pb._bucket(len(toks))), dtype=torch.long, device="cuda")
+                out[0, :len(toks)] = torch.tensor(toks, device="cuda")
+                return out
+
+            got = {}  # each prefill's last logits, run once under the profiler
+            with torch.no_grad():
+                prof = {"warm": profiled(lambda: got.setdefault(
+                            "warm", pb._prefill(padded(rem), n, pages)[0].float())),
+                        "cold": profiled(lambda: got.setdefault(
+                            "cold", pb._prefill(padded(prompt), n, [])[0].float()))}
+                warm16, cold16 = got["warm"], got["cold"]
+                full = padded(prompt)
+                pos = torch.arange(full.shape[1], device="cuda")[None, :]
+                lg, _ = forward_cached(cfg32, params, full, pos,
+                                       init_cache(cfg32, 1, full.shape[1], device="cuda"),
+                                       None, prefill=True)
+                cold32 = lg[0, n - 1].float()
+            gap = max_abs(cold16, cold32)
+            err = max_abs(warm16, cold16)
+            row = {"prompt_tokens": n, "prefix_tokens": PREFIX_TOKENS,
+                   "warm_vs_cold_bf16": err, "cold_bf16_vs_fp32": gap,
+                   "warm_bf16_vs_cold_fp32": max_abs(warm16, cold32),
+                   "bound": 2 * gap + 1e-4,
+                   "argmax": [int(x.argmax()) for x in (warm16, cold16, cold32)]}
+            for name, p in prof.items():  # one prefill each: device time, host wall
+                row[f"{name}_prefill"] = {k: p[k] for k in ("wall_ms", "device_busy_ms",
+                                                              "device_idle_share",
+                                                              "device_ms_by_kind")}
+            emit(row)
+            if not err <= 2 * gap + 1e-4:
+                raise AssertionError(f"warm prefill logits off the cold prefill: {row}")
+
+        with phase("paged_decode_times"):
+            # one decode step at batch 8, every slot active, at the lengths
+            # the 8 prompts reach after MAX_TOKENS: the paged step (gather,
+            # attend, scatter a layer) against the slot-dense step
+            lengths = [len(i) + MAX_TOKENS for i in ids8]
+            table = np.zeros((pb.slots, pb.pages_per_seq), np.int64)
+            held = []
+            for slot, n in enumerate(lengths):
+                table[slot, :n // PAGE_SIZE + 1] = [pb.kv.alloc() for _ in range(n // PAGE_SIZE + 1)]
+                held += table[slot, :n // PAGE_SIZE + 1].tolist()
+            dev = torch.device("cuda")
+            args = (torch.zeros(8, dtype=torch.long, device=dev),
+                    torch.from_numpy(table).to(dev), torch.tensor(lengths, device=dev),
+                    torch.zeros(8, device=dev), torch.zeros(8, dtype=torch.long, device=dev),
+                    torch.ones(8, dtype=torch.bool, device=dev))
+            dense.cache.lengths.copy_(torch.tensor(lengths, device=dev))
+            dargs = args[:1] + args[3:]
+            with torch.no_grad():
+                paged_step = lambda: pb._decode(*args)  # noqa: E731
+                dense_step = lambda: (dense._decode(*dargs), dense.cache.lengths.sub_(1))  # noqa: E731
+                ms = {"dense": timed_steps(dense_step, 16), "paged": timed_steps(paged_step, 16)}
+                ms["dense_again"] = timed_steps(dense_step, 16)
+                ms["paged_again"] = timed_steps(paged_step, 16)
+                # one step a profile (a profile of 3,000 device activities
+                # takes seconds to read); the paged step twice
+                prof = {"paged": profiled(paged_step), "dense": profiled(dense_step),
+                        "paged_again": profiled(paged_step)}
+                one = [prof["paged"]["device_activities"], prof["paged_again"]["device_activities"]]
+            for page in held:
+                pb.kv.decref(page)
+            row = {"decode_ms_per_token": ms, "batch": 8, "lengths": lengths,
+                   "clock": "host, synchronized, 16 steps", "paged_step_activities": one}
+            for name, p in prof.items():
+                row[f"{name}_device_idle_share"] = p["device_idle_share"]
+                row[f"{name}_device_busy_ms"] = p["device_busy_ms"]
+                row[f"{name}_device_ms_by_kind"] = p["device_ms_by_kind"]
+            emit(row)
+            if one[0] != one[1]:
+                raise AssertionError(f"two paged decode steps ran {one} device activities")
+    finally:
+        for b in (pb, over):
+            if b is not None:
+                b.shutdown()
     return launches
 
+
+NP_REDUCE = {"sum": lambda a: a.sum(0), "product": lambda a: a.prod(0),
+             "max": lambda a: a.max(0), "min": lambda a: a.min(0),
+             "mean": lambda a: a.mean(0)}
+
+
+def collective_nccl(smi) -> None:
+    """The collective API over NCCL on the card, a world of one: every op
+    on CUDA tensors (a list of 2 parts, as one member holding two
+    devices would pass them) against numpy, async_allreduce among them,
+    and the time of a 256 MB bf16 allreduce (at one rank the group's
+    reduction over its one part, a copy, and NCCL's in-place call: no
+    link traffic). send/recv needs a second rank: held under 4 gloo ranks
+    on the CPU (tests/test_torch_collective.py)."""
+    from ray_tpu_torch.util import collective as col
+
+    with phase("collective_nccl"):
+        col.init_collective_group(1, 0, "nccl", "smoke")
+        try:
+            rng = np.random.RandomState(SEED)
+            xs = [(rng.random_sample((16, 3)) + 0.5).astype(np.float32) for _ in range(2)]
+            parts = [torch.from_numpy(x).cuda() for x in xs]
+            errs = {}
+            for op, f in NP_REDUCE.items():
+                red = f(np.stack(xs))
+                got = col.allreduce(parts, "smoke", op)
+                errs[f"allreduce_{op}"] = float(np.abs(got.cpu().numpy() - red).max())
+                got = col.reducescatter(parts, "smoke", op)
+                errs[f"reducescatter_{op}"] = float(np.abs(got.cpu().numpy() - red.reshape(2, 8, 3)).max())
+                if got.device.type != "cuda":
+                    raise AssertionError(f"{op}: result on {got.device}")
+            errs["allgather"] = float(np.abs(col.allgather(parts, "smoke").cpu().numpy() - np.stack(xs)).max())
+            errs["broadcast"] = float(np.abs(col.broadcast(parts[0], 0, "smoke").cpu().numpy() - xs[0]).max())
+            col.barrier("smoke")
+
+            x = torch.randn(COLLECTIVE_BYTES // 2, device="cuda").to(torch.bfloat16)
+            out = col.allreduce(x, "smoke")
+            errs["allreduce_256MB"] = max_abs(out, x)
+            ms = cuda_ms(lambda: col.allreduce(x, "smoke"), 10)
+            copy_ms = cuda_ms(lambda: x.clone(), 10)
+
+            t = parts[0].clone()
+            h = col.async_allreduce(t, "smoke", "max")
+            t.zero_()  # the op took a snapshot
+            mid = col.allreduce(parts, "smoke")  # queued behind it
+            errs["async_allreduce"] = float(np.abs(h.result(60).cpu().numpy() - xs[0]).max())
+            errs["sync_after_async"] = float(np.abs(mid.cpu().numpy() - np.stack(xs).sum(0)).max())
+            row = {"backend": "nccl", "world_size": 1, "max_abs_err": errs,
+                   "allreduce_bytes": COLLECTIVE_BYTES, "allreduce_ms": ms,
+                   "clone_ms": copy_ms, "what_is_timed": "world of one: a copy, no link traffic",
+                   "card": smi}
+            emit(row)
+            bad = {k: v for k, v in errs.items() if v > (1e-6 if "sum" in k or "mean" in k
+                                                         or "product" in k or k.startswith("sync")
+                                                         else 0.0)}
+            if bad:
+                raise AssertionError(f"collectives over NCCL disagree with numpy: {bad}")
+        finally:
+            col.destroy_collective_group("smoke")
 
 
 # the port's launch counters, by kernel name
@@ -1622,7 +1954,7 @@ def main() -> int:
             del q, k, v, o, lse, o_ref, lse_ref
             torch.cuda.empty_cache()
 
-    serving = serving_phases(kernels)
+    serving, paged = serving_phases(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
@@ -1640,10 +1972,12 @@ def main() -> int:
     moe_vs_cpu()
     moe, moe_numbers = moe_train_steps(smi)
     moe_mesh = moe_mesh_train_steps(smi, moe_numbers)
+    collective_nccl(smi)
     kernel_facts(kernels)
     for name, row in kernels.items():
         row["card"] = smi
-        row["launches_by_path"] = {"serving": serving[name], "train_step": train[name],
+        row["launches_by_path"] = {"serving": serving[name], "paged_serving": paged[name],
+                                   "train_step": train[name],
                                    "ring": ring[name], "mesh_train_step": mesh[name],
                                    "pipeline_train_step": pipe[name],
                                    "moe_train_step": moe[name],

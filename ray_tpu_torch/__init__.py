@@ -7,9 +7,10 @@ card, and raises when there is none. The CPU is used only when a caller
 asks for it (``device="cpu"``), as the tests do.
 
 Subpackages: ``ops`` (the flash kernels), ``models`` (the transformer,
-decoding, continuous batching, weights from JAX), ``llm`` (the serving
-engines), ``train`` (the train step) and ``parallel`` (the device mesh,
-sharding rules and collectives of the sharded step).
+decoding, continuous batching, the paged KV cache, weights from JAX),
+``llm`` (the serving engines), ``train`` (the train step), ``parallel``
+(the device mesh, sharding rules and collectives of the sharded step,
+the multi-host bootstrap) and ``util.collective`` (the collective API).
 """
 
 from __future__ import annotations

@@ -1,5 +1,13 @@
-"""Model zoo of the PyTorch port (flagship: Llama-family decoder LM)."""
+"""Model zoo of the PyTorch port (flagship: Llama-family decoder LM),
+with its serving caches: slot-dense (``continuous_batching``) and paged
+with prefix reuse (``paged_kv``)."""
 
+from ray_tpu_torch.models.paged_kv import (
+    KVPoolExhausted,
+    PagedBatcher,
+    PagedKV,
+    prefix_keys,
+)
 from ray_tpu_torch.models.transformer import (
     PRESETS,
     TransformerConfig,
@@ -11,6 +19,10 @@ from ray_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "KVPoolExhausted",
+    "PagedBatcher",
+    "PagedKV",
+    "prefix_keys",
     "PRESETS",
     "TransformerConfig",
     "config",

@@ -31,7 +31,9 @@ from ray_tpu_torch import default_device
 from ray_tpu_torch.models.transformer import (
     TransformerConfig, _layer, _logits, _mlp, _qkv, _rms_norm,
 )
-from ray_tpu_torch.ops.attention import NEG_INF, flash_attention
+from ray_tpu_torch.ops.attention import (
+    NEG_INF, flash_attention, flash_attention_fwd, merge_lse,
+)
 
 
 @dataclasses.dataclass
@@ -75,10 +77,25 @@ def _attend_cached(q, k_cache, v_cache, q_pos, kv_len_mask):
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def _prefix_prefill_attention(q, k, v, k_prefix, v_prefix):
+    """Queries at positions P.. over the P cached prefix keys and the
+    call's own fresh keys, as two flash kernel calls merged by
+    log-sum-exp: the kernel's causal mask is top-left aligned (key <=
+    query index), so one causal call over the whole row would hide the
+    prefix from the first queries. The prefix is wholly visible
+    (``causal=False``); the fresh keys are the causal diagonal."""
+    o_pre, lse_pre = flash_attention_fwd(q, k_prefix, v_prefix, causal=False)
+    o_new, lse_new = flash_attention_fwd(q, k, v, causal=True)
+    return merge_lse(o_pre, lse_pre, o_new, lse_new)[0].to(q.dtype)
+
+
 def _block_cached(cfg: TransformerConfig, x, p, lora, positions,
-                  k_cache, v_cache, kv_len_mask, prefill: bool = False):
+                  k_cache, v_cache, kv_len_mask, prefill: bool = False,
+                  prefix_len: int = 0):
     """One decoder block against cached K/V; writes this call's K/V into
-    ``k_cache``/``v_cache`` ([B, max_len, kvH, D] views) in place."""
+    ``k_cache``/``v_cache`` ([B, max_len, kvH, D] views) in place. A
+    prefill with ``prefix_len`` > 0 continues a row whose first
+    ``prefix_len`` slots already hold K/V (a reused prefix)."""
     if cfg.num_experts:
         raise NotImplementedError(
             "the cached (serving) path is dense-only: the JAX package's "
@@ -96,7 +113,10 @@ def _block_cached(cfg: TransformerConfig, x, p, lora, positions,
     slots = positions.clamp(max=k_cache.shape[1] - 1)
     k_cache[bidx, slots] = k.to(k_cache.dtype)
     v_cache[bidx, slots] = v.to(v_cache.dtype)
-    if prefill:
+    if prefill and prefix_len:
+        attn = _prefix_prefill_attention(q, k, v, k_cache[:, :prefix_len],
+                                         v_cache[:, :prefix_len])
+    elif prefill:
         attn = flash_attention(q, k, v, causal=True)
     else:
         attn = _attend_cached(q, k_cache, v_cache, positions, kv_len_mask)
@@ -105,18 +125,21 @@ def _block_cached(cfg: TransformerConfig, x, p, lora, positions,
 
 
 def forward_cached(cfg: TransformerConfig, params, tokens, positions,
-                   cache: KVCache, kv_len_mask, prefill: bool = False):
+                   cache: KVCache, kv_len_mask, prefill: bool = False,
+                   prefix_len: int = 0):
     """Forward [B,S] tokens through all layers, writing the cache in place.
 
-    ``prefill=True`` says the cache holds nothing yet and ``positions``
-    are 0..S-1: attention then runs the flash kernel over the fresh K/V.
+    ``prefill=True`` says the cache holds nothing at or past
+    ``prefix_len`` and ``positions`` are prefix_len..prefix_len+S-1:
+    attention then runs the flash kernel over the fresh K/V, and with
+    ``prefix_len`` > 0 a second call over the cached prefix, merged.
     Returns (logits [B,S,V], cache) — the same cache object, updated.
     """
     x = params["embed"].to(cfg.dtype)[tokens]
     for i in range(cfg.layers):
         lp, lo = _layer(params, i)
         x = _block_cached(cfg, x, lp, lo, positions, cache.k[i], cache.v[i],
-                          kv_len_mask, prefill=prefill)
+                          kv_len_mask, prefill=prefill, prefix_len=prefix_len)
     return _logits(cfg, params, x), cache
 
 

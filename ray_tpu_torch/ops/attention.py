@@ -236,6 +236,18 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     return _flash_fwd_cuda(q, k, v, causal, sm_scale)
 
 
+def merge_lse(o_acc, lse_acc, o, lse) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two attentions of the same queries over disjoint key sets by
+    log-sum-exp: ``(o_acc, lse_acc)`` and ``(o, lse)``, O [B,Sq,H,D], LSE
+    [B,H,Sq] fp32, give (O fp32, LSE) over the union of the keys. The
+    ring (each arriving K/V block) and the paged prefill (the reused
+    prefix, then the fresh tokens) both merge this way."""
+    new = torch.logaddexp(lse_acc, lse)
+    o_acc = (o_acc.float() * torch.exp(lse_acc - new).transpose(1, 2)[..., None]
+             + o.float() * torch.exp(lse - new).transpose(1, 2)[..., None])
+    return o_acc, new
+
+
 def _flash_bwd_delta(o, do):
     """Δ = rowsum(dO ∘ O) in fp32, [B, H, Sq]: the softmax-Jacobian term
     both backward passes subtract (the JAX package computes it in jnp

@@ -43,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.ops.attention import (
-    flash_attention, flash_attention_bwd, flash_attention_fwd,
+    flash_attention, flash_attention_bwd, flash_attention_fwd, merge_lse,
 )
 from ray_tpu_torch.parallel.collectives import exchange
 
@@ -72,10 +72,7 @@ def ring_attention_rank_fwd(q, blocks: Iterable, my: int, causal: bool = True,
         if o_acc is None:
             o_acc, lse_acc = o.float(), lse
             continue
-        new = torch.logaddexp(lse_acc, lse)
-        o_acc = (o_acc * torch.exp(lse_acc - new).transpose(1, 2)[..., None]
-                 + o.float() * torch.exp(lse - new).transpose(1, 2)[..., None])
-        lse_acc = new
+        o_acc, lse_acc = merge_lse(o_acc, lse_acc, o, lse)
     return o_acc.to(q.dtype), lse_acc
 
 

@@ -3,10 +3,18 @@ collectives of the sharded step (PyTorch port of ray_tpu.parallel).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the JAX
 package's seven axis names; the port runs every axis, ``stage`` (the
-pipeline, ray_tpu_torch/ops/pipeline.py) among them. Multi-host
-bootstrap comes with ROADMAP.md Queue A item 7.
+pipeline, ray_tpu_torch/ops/pipeline.py) among them. ``bootstrap``
+brings up the default process group across host processes
+(``initialize_host``).
 """
 
+from ray_tpu_torch.parallel.bootstrap import (
+    HostGroupSpec,
+    initialize_host,
+    local_process_specs,
+    megascale_env,
+    shutdown_host,
+)
 from ray_tpu_torch.parallel.collectives import (
     MeshGroups,
     mesh_groups,
@@ -31,6 +39,11 @@ from ray_tpu_torch.parallel.sharding import (
 )
 
 __all__ = [
+    "HostGroupSpec",
+    "initialize_host",
+    "shutdown_host",
+    "local_process_specs",
+    "megascale_env",
     "AXIS_ORDER",
     "DCN_AXES",
     "MeshSpec",

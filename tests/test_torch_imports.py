@@ -17,7 +17,9 @@ from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.decoding import Generator, init_cache
-from ray_tpu_torch.parallel import single_device_mesh
+from ray_tpu_torch.models.paged_kv import PagedBatcher
+from ray_tpu_torch.parallel import initialize_host, local_process_specs, single_device_mesh
+from ray_tpu_torch.util.collective import init_collective_group
 from ray_tpu_torch.train import (
     default_optimizer, init_state, make_eval_step, make_train_step,
 )
@@ -49,7 +51,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.ops, "
-            "ray_tpu_torch.models.convert, ray_tpu_torch.train, ray_tpu_torch.parallel; "
+            "ray_tpu_torch.models.convert, ray_tpu_torch.train, ray_tpu_torch.parallel, "
+            "ray_tpu_torch.models.paged_kv, ray_tpu_torch.parallel.bootstrap, "
+            "ray_tpu_torch.util.collective; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -67,6 +71,7 @@ def no_cuda(monkeypatch):
     "default_device", "init_params", "init_cache", "params_from_jax",
     "Generator", "ContinuousBatcher", "LLMEngine", "ContinuousLLMEngine",
     "init_state", "make_train_step", "make_eval_step", "single_device_mesh",
+    "PagedBatcher", "init_collective_group", "initialize_host",
 ])
 def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
     cfg = T.config("debug")
@@ -83,6 +88,9 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         "make_train_step": lambda: make_train_step(cfg, default_optimizer(cfg)),
         "make_eval_step": lambda: make_eval_step(cfg),
         "single_device_mesh": lambda: single_device_mesh(),
+        "PagedBatcher": lambda: PagedBatcher(cfg, {}),
+        "init_collective_group": lambda: init_collective_group(1, 0),
+        "initialize_host": lambda: initialize_host(local_process_specs(2)[0]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

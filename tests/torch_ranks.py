@@ -1,8 +1,11 @@
 """The ranks of the port's multi-rank tests (tests/test_torch_sharded_step*.py,
-tests/test_torch_pipeline*.py, tests/test_torch_ring_attention.py).
+tests/test_torch_pipeline*.py, tests/test_torch_ring_attention.py,
+tests/test_torch_collective.py).
 
 ``World`` spawns one group of gloo ranks on the CPU, brought up over a
-FileStore in a temporary directory (no TCP port), and runs every case of
+FileStore in a temporary directory (no TCP port) or, when the cases
+carry ``BOOTSTRAP`` (one HostGroupSpec a rank), through the port's
+``initialize_host`` over TCP on localhost, and runs every case of
 a test file in it: a case is a function of this module, named with its
 keyword arguments (numpy inputs: tokens, masks, the JAX train state).
 Each rank returns its results as numpy, collected per rank. A group
@@ -31,12 +34,14 @@ from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.convert import params_from_jax, state_from_jax
 from ray_tpu_torch.ops.pipeline import pipelined_layers
 from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel import bootstrap
 from ray_tpu_torch.parallel import (
     DEFAULT_RULES, MeshSpec, build_mesh, local_shard, mesh_groups, read_collectives,
     reset_collectives, shard_batch,
 )
 
 LR = 3e-4
+BOOTSTRAP = "bootstrap"  # cases key: the HostGroupSpecs to bring the ranks up with
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
 
 
@@ -91,15 +96,22 @@ def _rank(rank, world, out):
         time.sleep(0.02)
     with open(path, "rb") as f:
         cases = pickle.load(f)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, "store"), world),
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=120))
+    specs = cases.pop(BOOTSTRAP, None)
+    if specs is not None:
+        bootstrap.initialize_host(specs[rank], "gloo")
+    else:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, "store"), world),
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
     try:
         results = {name: globals()[fn](**kw) for name, (fn, kw) in cases.items()}
         results["jax_imported"] = sorted(m for m in sys.modules
                                          if m.split(".")[0] in FORBIDDEN)
     finally:
-        dist.destroy_process_group()
+        if specs is not None:
+            bootstrap.shutdown_host()
+        else:
+            dist.destroy_process_group()
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
 
@@ -301,6 +313,83 @@ def ring(q, k, v, do, causal=True):
     (o * mine(do)).sum().backward()
     return {"o": o.detach().numpy(), "dq": tq.grad.numpy(), "dk": tk.grad.numpy(),
             "dv": tv.grad.numpy(), "sent": (sent_fwd, read_collectives()["send"])}
+
+
+def collective_input(seed, rank, shape=(8, 3)):
+    """Rank ``rank``'s input to the collective cases: float32 in [0.5, 1.5)
+    (a product of a few stays near 1)."""
+    return (np.random.RandomState(seed + rank).random_sample(shape) + 0.5).astype(np.float32)
+
+
+def collectives(seed):
+    """Every op of ray_tpu_torch.util.collective over the world, on two
+    named groups at once, with each rank's ``collective_input``: results
+    as numpy, by (op, reduce op). Also send/recv round the ring, async
+    allreduces mixed with sync ops (each async input overwritten right
+    after its submission), a destroyed and re-made group, and the typed
+    errors, each as its type name and message."""
+    from ray_tpu_torch.util import collective as col
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    col.init_collective_group(world, rank, "gloo", "a")
+    col.init_collective_group(world, rank, "gloo", "b")
+    x = collective_input(seed, rank)
+    parts = [x, 2 * x]
+    out = {"rank": (col.get_rank("a"), col.get_collective_group_size("b"),
+                    col.is_group_initialized("a"), col.get_rank("nope"))}
+    for op in ("sum", "product", "max", "min", "mean"):
+        out[("allreduce", op)] = col.allreduce(x, "a", op).numpy()
+        out[("reducescatter", op)] = col.reducescatter(x, "b", op).numpy()
+        out[("allreduce_parts", op)] = col.allreduce(parts, "b", op).numpy()
+        out[("reducescatter_parts", op)] = col.reducescatter(parts, "a", op).numpy()
+    out["allgather"] = col.allgather(torch.from_numpy(x), "a").numpy()
+    out["allgather_parts"] = col.allgather(parts, "b").numpy()
+    out["allreduce_int"] = col.allreduce(np.arange(4, dtype=np.int32) + rank, "a").numpy()
+    out["broadcast"] = col.broadcast(x, 2, "a").numpy()
+    out["x_unchanged"] = bool(np.array_equal(x, collective_input(seed, rank)))
+    # send/recv round the ring: even ranks send first, odd ranks receive first
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+    if rank % 2 == 0:
+        col.send(x[rank], nxt, "a")
+        out["recv"] = col.recv(prv, "a").numpy()
+    else:
+        out["recv"] = col.recv(prv, "a").numpy()
+        col.send(x[rank], nxt, "a")
+    # async allreduces between sync ops, on one group, in submission order
+    buf = x.copy()
+    h1 = col.async_allreduce(buf, "b")
+    buf[:] = 0  # the op took a snapshot
+    mid = col.allreduce(3 * x, "b", "max")
+    tb = torch.from_numpy(5 * x)
+    h2 = col.async_allreduce(tb, "b", "min")
+    tb.zero_()
+    col.barrier("b")
+    out["async"] = (h1.result(60).numpy(), mid.numpy(), h2.result(60).numpy(),
+                    h1.done() and h2.done())
+    col.destroy_collective_group("a")
+    out["destroyed"] = (col.is_group_initialized("a"), col.get_rank("a"))
+    col.init_collective_group(world, rank, "gloo", "a")
+    out["remade"] = col.allreduce(x, "a").numpy()
+    errors = {}
+    for name, call in (("uninitialized", lambda: col.allreduce(x, "nope")),
+                       ("wrong_rank", lambda: col.init_collective_group(
+                           world, (rank + 1) % world, "gloo", "c")),
+                       ("too_big", lambda: col.init_collective_group(world + 1, rank, "gloo", "c")),
+                       ("twice", lambda: col.init_collective_group(world, rank, "gloo", "a")),
+                       ("objstore", lambda: col.init_collective_group(world, rank, "objstore", "c")),
+                       ("actors", lambda: col.create_collective_group([], world, [])),
+                       ("reducescatter_shape", lambda: col.reducescatter(x[:3], "a"))):
+        try:
+            call()
+            errors[name] = None
+        except Exception as e:  # noqa: BLE001 — the test reads the type
+            errors[name] = (type(e).__name__, str(e))
+    out["errors"] = errors
+    out["c_initialized"] = col.is_group_initialized("c")
+    col.barrier("a")
+    col.destroy_collective_group("a")
+    col.destroy_collective_group("b")
+    return out
 
 
 def _items(tree, prefix=""):
