@@ -50,7 +50,17 @@ before it and read just after:
   the unpipelined step's within twice that step's own distance from the
   same step in fp32 (measured here);
 - collectives: ray_tpu_torch.util.collective over NCCL, a world of one:
-  every op on CUDA tensors against numpy, a 256 MB bf16 allreduce timed.
+  every op on CUDA tensors against numpy, a 256 MB bf16 allreduce timed;
+- the trainer: llama2_7b_lora at full width through
+  ray_tpu_torch.train.TorchTrainer with keep-1 checkpoints and one
+  retry: steps 0-4, the state saved through torch.distributed.checkpoint
+  after steps 2 and 4, a planned failure after step 2 and a resume from
+  its checkpoint (losses bit-identical to the uninterrupted steps, the
+  restored state's fingerprints equal to the saved one's); then
+  LLMEngine serving the step-4 checkpoint through LLMConfig.params_path
+  (greedy tokens bit-identical to the loop's from its in-memory params),
+  and a bf16 state saved under a mesh of one (CUDA DTensors over NCCL)
+  restored bit-identical.
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -69,8 +79,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1187,6 +1199,308 @@ def train_steps(smi) -> dict:
     return launches, summary
 
 
+FIT_STEPS, FIT_SAVE_AT, FIT_FAIL_AFTER = 5, (2, 4), 2  # steps 0-4; save after 2 and 4
+SERVE_TOKENS = 16  # serve_from_checkpoint's greedy tokens a prompt
+
+
+def fingerprints(tree) -> dict:
+    """path → the int64 sum of each leaf's bit pattern, computed on the card."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return {p: int(t.contiguous().view(ints[t.element_size()]).sum(dtype=torch.int64))
+            for p, t in tree_items(tree)}
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def state_bytes(cfg) -> int:
+    """The bytes of a train state of ``cfg``: params and the trainable
+    leaves' two moments in the params' dtype, plus step and count."""
+    from ray_tpu_torch.models import transformer as T
+
+    shapes = T.param_shapes(cfg)
+    size = torch.tensor([], dtype=cfg.param_dtype).element_size()
+
+    def numel(tree):
+        return sum(numel(v) if isinstance(v, dict) else int(np.prod(v[0]))
+                   for v in tree.values())
+
+    return size * (numel(shapes) + 2 * numel(T.trainable_leaves(cfg, shapes))) + 8
+
+
+def fit_storage(cfg):
+    """(directory, layers, free bytes): a fresh temporary directory for
+    the trainer's storage, and the depth whose checkpoints its disk holds
+    twice (keep-1 holds the new one beside the old for a moment) with 10%
+    to spare: all of cfg's layers unless the disk is short."""
+    root = tempfile.mkdtemp(prefix="trainer_fit_")
+    free = shutil.disk_usage(root).free
+    full, one_layer = state_bytes(cfg), state_bytes(dataclasses.replace(cfg, layers=1))
+    per_layer = (full - one_layer) // (cfg.layers - 1)
+    layers = cfg.layers
+    while layers > 1 and 2.2 * (one_layer + (layers - 1) * per_layer) > free:
+        layers -= 1
+    if layers < 2:
+        shutil.rmtree(root)
+        raise RuntimeError(f"{free} bytes free on {root}: no room for two checkpoints")
+    return root, layers, free
+
+
+def meta_params(cfg):
+    """The params tree of ``cfg`` as meta tensors (shapes and dtype, no
+    storage): a restore's target."""
+    from ray_tpu_torch.models import transformer as T
+
+    def meta(tree):
+        return {k: meta(v) if isinstance(v, dict) else
+                torch.empty(v[0], dtype=cfg.param_dtype, device="meta") for k, v in tree.items()}
+
+    return meta(T.param_shapes(cfg))
+
+
+def uninterrupted_losses(cfg, opt, batch) -> list:
+    """FIT_STEPS losses of an uninterrupted make_train_step run from
+    init_state(seed=SEED): trainer_fit's reference when the disk cut its
+    depth below train_steps'."""
+    from ray_tpu_torch import train as S
+
+    state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+    run = S.make_train_step(cfg, opt, device="cuda")
+    out = [float(run(state, batch)[1]["loss"]) for _ in range(FIT_STEPS)]
+    del state
+    return out
+
+
+def trainer_phases(smi, unsharded) -> tuple:
+    """The trainer path and serving what it trained, at full width.
+
+    ``trainer_fit``: TorchTrainer.fit() of llama2_7b_lora (bf16 params,
+    B=8 x 2048, remat, train_steps' seed and batch) with storage in a
+    fresh directory, keep-1 and max_failures=1. The loop restores from
+    get_checkpoint() when there is one (params into a meta target, the
+    rest from DCP's metadata), runs to step 4, and after steps 2 and 4
+    saves the state with save_state (``params`` and ``train``, two
+    subdirectories of one Checkpoint) and reports it; the first attempt
+    raises right after reporting step 2 (a marker file), the second
+    resumes from step 2. At step 4 it decodes the serving prompts greedily
+    from its in-memory params (Generator) and reports the tokens. Gates:
+    launches 64/32/32 every step; the losses of steps 0-4 equal
+    ``unsharded``'s (train_steps') bit for bit; per-leaf fingerprints at
+    the save equal those after the restore; Result.metrics["step"] 4 and
+    one checkpoint left; memory allocated at the second attempt's start
+    within 1 GB of the first's.
+
+    ``serve_from_checkpoint``: LLMEngine(LLMConfig(params_path=<the step-4
+    checkpoint>/params)) greedy-decodes the same prompts: tokens equal the
+    loop's bit for bit, the params' fingerprints equal the step-4 save's,
+    every LoRA B non-zero in every layer, 32 flash-forward launches.
+
+    Returns each path's launches. The storage is removed at the end."""
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine
+    from ray_tpu_torch.llm.config import ByteTokenizer
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.models.decoding import Generator, SamplingParams
+    from ray_tpu_torch.ops import attention as A
+
+    full = T.config("llama2_7b_lora", param_dtype=torch.bfloat16)
+    root, layers, free = fit_storage(full)
+    cfg = dataclasses.replace(full, layers=layers)
+    tok = ByteTokenizer()
+    ids4 = [tok.encode(p) for p in prompt_texts([100, 600, 1100, 1500], SEED)]
+    greedy = SamplingParams(max_tokens=SERVE_TOKENS)
+    want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+            "flash_bwd_dkv": cfg.layers}
+    try:
+        with phase("trainer_fit"):
+            emit({"storage": root, "free_bytes": free, "layers": layers,
+                  "reduced": layers != full.layers, "state_bytes": state_bytes(cfg)})
+            opt = S.default_optimizer(cfg)
+            tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+                0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+            batch = {"tokens": tokens}
+            marker = os.path.join(root, "fail_once")
+            rec = {"mem_at_start": [], "attempt_s": [], "saves": [], "restores": [],
+                   "saved_fp": {}, "restored_fp": [], "steps": []}
+
+            def loop(config):
+                t_attempt = time.perf_counter()
+                rec["mem_at_start"].append(torch.cuda.memory_allocated())
+                ck = S.get_checkpoint()
+                if ck is None:
+                    state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+                else:
+                    t0 = time.perf_counter()
+                    state = {"params": S.restore_state(os.path.join(ck.path, "params"),
+                                                       meta_params(cfg), device="cuda"),
+                             **S.restore_state(os.path.join(ck.path, "train"), device="cuda")}
+                    torch.cuda.synchronize()
+                    s = time.perf_counter() - t0
+                    nbytes = sum(dir_bytes(os.path.join(ck.path, n)) for n in ("params", "train"))
+                    fp = fingerprints(state)
+                    rec["restores"].append({"s": s, "bytes": nbytes, "gb_per_s": nbytes / s / 1e9,
+                                            "step": int(state["step"])})
+                    rec["restored_fp"].append(fp == rec["saved_fp"][int(state["step"]) - 1])
+                run = S.make_train_step(cfg, opt, device="cuda")
+                for i in range(int(state["step"]), config["steps"]):
+                    before = read_launches(A)
+                    state, m = run(state, batch)
+                    metrics = {"step": i, **{k: float(v) for k, v in m.items()}}
+                    after = read_launches(A)
+                    rec["steps"].append({**metrics, "launches": {
+                        k: after[k] - before[k] for k in after}})
+                    if i not in FIT_SAVE_AT:
+                        S.report(metrics)
+                        continue
+                    d = os.path.join(S.get_context().get_storage_path(), f"report_step{i}")
+                    rec["saved_fp"][i] = fingerprints(state)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    S.save_state(state["params"], os.path.join(d, "params"))
+                    S.save_state({"opt_state": state["opt_state"], "step": state["step"]},
+                                 os.path.join(d, "train"))
+                    s = time.perf_counter() - t0
+                    nbytes = dir_bytes(d)
+                    rec["saves"].append({"step": i, "s": s, "bytes": nbytes,
+                                         "gb_per_s": nbytes / s / 1e9})
+                    if i == config["steps"] - 1:  # serve what was trained, in memory
+                        with torch.no_grad():
+                            metrics["tokens"] = Generator(cfg, state["params"], max_len=MAX_LEN,
+                                                          device="cuda").generate(ids4, greedy, 1)
+                    S.report(metrics, checkpoint=S.Checkpoint(d))
+                    if i == FIT_FAIL_AFTER and not os.path.exists(marker):
+                        open(marker, "w").close()
+                        rec["attempt_s"].append(time.perf_counter() - t_attempt)
+                        raise RuntimeError(f"planned failure after step {i}")
+                rec["attempt_s"].append(time.perf_counter() - t_attempt)
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            # ---- the main path: counts from 0, read right after ----------
+            reset_launches(A)
+            res = S.TorchTrainer(loop, train_loop_config={"steps": FIT_STEPS}, run_config=S.RunConfig(
+                name="llama2_7b_lora", storage_path=os.path.join(root, "storage"),
+                failure_config=S.FailureConfig(max_failures=1),
+                checkpoint_config=S.CheckpointConfig(num_to_keep=1))).fit()
+            fit_launches = read_launches(A)
+            # ---- end of the main path ------------------------------------
+            ref = ([m["loss"] for m in unsharded["metrics"][:FIT_STEPS]] if layers == full.layers
+                   else uninterrupted_losses(cfg, opt, batch))
+            losses = [s_["loss"] for s_ in rec["steps"]]
+            left = sorted(p for p in os.listdir(res.path) if p.startswith("checkpoint_"))
+            row = {"model": "llama2_7b_lora", "layers": cfg.layers, "batch": TRAIN_BATCH,
+                   "seq": MAX_LEN, "param_dtype": "bfloat16", "steps": rec["steps"],
+                   "losses": losses, "reference_losses": ref,
+                   "bit_identical": losses == ref, "saves": rec["saves"],
+                   "restores": rec["restores"], "restored_fingerprints_equal": rec["restored_fp"],
+                   "mem_at_attempt_start": rec["mem_at_start"], "attempt_s": rec["attempt_s"],
+                   "result_metrics_step": res.metrics.get("step"), "error": res.error is not None,
+                   "checkpoints_left": left, "launches": fit_launches,
+                   "clock": "host, synchronized", "card": smi}
+            emit(row)
+            ok = (res.error is None and res.metrics.get("step") == FIT_STEPS - 1
+                  and len(left) == 1 and losses == ref and len(rec["steps"]) == FIT_STEPS
+                  and all(s_["launches"] == want for s_ in rec["steps"])
+                  and rec["restored_fp"] == [True] and len(rec["mem_at_start"]) == 2
+                  and rec["mem_at_start"][1] <= rec["mem_at_start"][0] + 2 ** 30)
+            if not ok:
+                raise AssertionError(f"trainer_fit: {row}")
+            fit_tokens = res.metrics["tokens"]
+            params_path = os.path.join(res.checkpoint.path, "params")
+            saved_fp = rec["saved_fp"][FIT_STEPS - 1]
+
+        with phase("serve_from_checkpoint"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            # ---- the main path: counts from 0, read right after ----------
+            reset_launches(A)
+            t0 = time.perf_counter()
+            engine = LLMEngine(LLMConfig(model=cfg, params_path=params_path, max_len=MAX_LEN),
+                               device="cuda")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            toks = engine.generate_tokens(ids4, greedy)
+            serve_launches = read_launches(A)
+            # ---- end of the main path ------------------------------------
+            params = engine.generator.params
+            fp_equal = fingerprints({"params": params}) == {
+                k: v for k, v in saved_fp.items() if k.startswith("params/")}
+            zero_b = [f"{n}[{i}]" for n, t in params["lora"].items() if n.endswith("_b")
+                      for i in range(t.shape[0]) if not bool(t[i].any())]
+            nbytes = dir_bytes(params_path)
+            row = {"params_path_bytes": nbytes, "restore_s": restore_s,
+                   "gb_per_s": nbytes / restore_s / 1e9, "tokens_equal": toks == fit_tokens,
+                   "fingerprints_equal": fp_equal,
+                   "lora_b_zero_layers": zero_b, "launches": serve_launches,
+                   "tokens": toks, "card": smi}
+            emit(row)
+            if not (toks == fit_tokens and fp_equal and not zero_b
+                    and serve_launches == {"flash_fwd": cfg.layers, "flash_bwd_dq": 0,
+                                           "flash_bwd_dkv": 0}):
+                raise AssertionError(f"serve_from_checkpoint: {row}")
+            del engine, params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return fit_launches, serve_launches
+
+
+def checkpoint_mesh_of_one(smi) -> None:
+    """DCP's CUDA-DTensor route over NCCL: a bf16 ``debug`` train state
+    (seeded random moments, step and count set) under
+    single_device_mesh("cuda"), an NCCL world of one, saved with its
+    shardings, then restored with no mesh (whole tensors) and with the
+    mesh and shardings (into a meta target): both bit-identical, dtypes
+    included. Destroys the process group at its end."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import parallel as P
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+
+    with phase("checkpoint_mesh_of_one"):
+        cfg = T.config("debug", param_dtype=torch.bfloat16)
+        opt = S.default_optimizer(cfg)
+        mesh = P.single_device_mesh("cuda")
+        root = tempfile.mkdtemp(prefix="ckpt_mesh_")
+        try:
+            state = S.init_state(cfg, opt, mesh, seed=SEED)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            for _, t in tree_items(state["opt_state"]):
+                if t.ndim:
+                    t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+            state["opt_state"]["count"].fill_(7)
+            state["step"].fill_(9)
+            sh = S.state_shardings(cfg, opt, mesh)
+            d = os.path.join(root, "state")
+            S.save_state(state, d, shardings=sh, mesh=mesh)
+            whole = S.restore_state(d, device="cuda")
+            meta = {"params": meta_params(cfg), "opt_state": opt.init(meta_params(cfg)),
+                    "step": torch.empty((), dtype=torch.int32, device="meta")}
+            sharded = S.restore_state(d, meta, sh, mesh=mesh)
+            want = dict(tree_items(state))
+
+            def same(tree):
+                got = dict(tree_items(tree))
+                return got.keys() == want.keys() and all(
+                    t.dtype == want[p].dtype and t.device.type == "cuda"
+                    and torch.equal(t, want[p]) for p, t in got.items())
+
+            row = {"backend": dist.get_backend(), "leaves": len(want),
+                   "bytes": dir_bytes(d), "files": sorted(os.listdir(d)),
+                   "whole_bit_identical": same(whole),
+                   "mesh_bit_identical": same(sharded), "card": smi}
+            emit(row)
+            if not (row["backend"] == "nccl" and row["whole_bit_identical"]
+                    and row["mesh_bit_identical"]):
+                raise AssertionError(f"checkpoint_mesh_of_one: {row}")
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(root, ignore_errors=True)
+
+
 def design_collectives(cfg, units, masked):
     """The collectives a train step issues by kind through a mesh with no
     sequence axis, as the design lays them out
@@ -1965,6 +2279,8 @@ def main() -> int:
     train, train_numbers = train_steps(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    fit, serve_ckpt = trainer_phases(smi, train_numbers)
+    checkpoint_mesh_of_one(smi)
     mesh = mesh_train_steps(smi, train_numbers)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1978,6 +2294,8 @@ def main() -> int:
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "paged_serving": paged[name],
                                    "train_step": train[name],
+                                   "trainer_fit": fit[name],
+                                   "serve_from_checkpoint": serve_ckpt[name],
                                    "ring": ring[name], "mesh_train_step": mesh[name],
                                    "pipeline_train_step": pipe[name],
                                    "moe_train_step": moe[name],

@@ -8,9 +8,11 @@ asks for it (``device="cpu"``), as the tests do.
 
 Subpackages: ``ops`` (the flash kernels), ``models`` (the transformer,
 decoding, continuous batching, the paged KV cache, weights from JAX),
-``llm`` (the serving engines), ``train`` (the train step), ``parallel``
-(the device mesh, sharding rules and collectives of the sharded step,
-the multi-host bootstrap) and ``util.collective`` (the collective API).
+``llm`` (the serving engines, from a checkpoint too), ``train`` (the
+train step, checkpoints through torch.distributed.checkpoint, the
+trainer with retry and resume), ``parallel`` (the device mesh, sharding
+rules and collectives of the sharded step, the multi-host bootstrap) and
+``util.collective`` (the collective API).
 """
 
 from __future__ import annotations

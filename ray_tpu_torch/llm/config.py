@@ -35,7 +35,7 @@ class LLMConfig:
 
     model: Any = "tiny"  # preset name or TransformerConfig
     max_len: int = 512
-    params_path: Optional[str] = None  # checkpoint dir: not ported yet
+    params_path: Optional[str] = None  # a params tree saved by train.save_state
     tokenizer: Any = None  # encode/decode object; default ByteTokenizer
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     seed: int = 0

@@ -14,11 +14,19 @@ from ray_tpu_torch.llm.config import LLMConfig
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
 from ray_tpu_torch.models.decoding import Generator, SamplingParams
+from ray_tpu_torch.train.checkpoint import restore_state
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 class LLMEngine:
     """``params``: converted weights (models/convert.py) already on
-    ``device``; without them the engine draws a seeded ``init_params``."""
+    ``device``; or ``config.params_path``, a params tree saved by
+    ``ray_tpu_torch.train.save_state`` (a fine-tune's), restored onto
+    ``device``; without either the engine draws a seeded
+    ``init_params``."""
 
     def __init__(self, config: LLMConfig, params: Optional[Dict] = None,
                  device=None):
@@ -32,10 +40,15 @@ class LLMEngine:
             cfg = T.config(cfg, vocab_size=int(vocab))
         self.model_config = cfg
         if config.params_path:
-            raise NotImplementedError(
-                "params_path needs the checkpoint slice (ROADMAP.md Queue A, "
-                "'Trainer, checkpoint and bootstrap'); pass params= instead")
-        if params is None:
+            if params is not None:
+                raise ValueError("pass params= or LLMConfig.params_path, not both")
+            # the target's shapes from param_shapes, jax.eval_shape's
+            # counterpart: nothing is drawn to learn them
+            shapes = T.param_shapes(cfg)
+            target = _map(lambda sf: torch.empty(sf[0], dtype=cfg.param_dtype,
+                                                 device="meta"), shapes)
+            params = restore_state(config.params_path, target=target, device=self.device)
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             params = T.init_params(cfg, gen, self.device)
         self.generator = Generator(cfg, params, max_len=config.max_len,

@@ -204,5 +204,32 @@ def shard_count(mesh: Optional[DeviceMesh], logical_axes: Sequence[Optional[str]
                      if e is not None)
 
 
+def placements(spec: Sequence, mesh: DeviceMesh) -> Tuple:
+    """The DTensor placements of a leaf whose ``spec_for`` entries are
+    ``spec`` on ``mesh``, one a mesh dim: ``Shard(d)`` on the mesh dim
+    that entry d names, ``Replicate()`` on every other. The global
+    layout a local shard lies in, as a ``jax.Array`` carries it. Mesh
+    axes of size 1 in an entry are dropped; an entry that still names
+    two axes (one dim cut over both, which ``DEFAULT_RULES`` does to no
+    param) raises NotImplementedError."""
+    # imported here: torch.distributed.tensor takes about a second to
+    # import, which the package's other users need not pay
+    from torch.distributed.tensor import Replicate, Shard
+
+    names, sizes = mesh.mesh_dim_names, mesh_sizes(mesh)
+    out = [Replicate()] * mesh.ndim
+    for dim, entry in enumerate(spec):
+        axes = [a for a in ((entry,) if isinstance(entry, str) else entry or ())
+                if sizes[a] > 1]
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"dim {dim} cut over {tuple(axes)}: a checkpoint layout cuts a dim "
+                f"over one mesh axis")
+        if axes:
+            out[names.index(axes[0])] = Shard(dim)
+    return tuple(out)
+
+
 __all__ = ["DEFAULT_RULES", "Rules", "spec_for", "local_shard", "shard_tree",
-           "shard_batch", "shard_count", "axis_dim", "check_rules", "effective_rules"]
+           "shard_batch", "shard_count", "axis_dim", "check_rules", "effective_rules",
+           "placements"]

@@ -21,7 +21,8 @@ from ray_tpu_torch.models.paged_kv import PagedBatcher
 from ray_tpu_torch.parallel import initialize_host, local_process_specs, single_device_mesh
 from ray_tpu_torch.util.collective import init_collective_group
 from ray_tpu_torch.train import (
-    default_optimizer, init_state, make_eval_step, make_train_step,
+    RunConfig, TorchTrainer, default_optimizer, init_state, make_eval_step, make_train_step,
+    restore_state,
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -53,13 +54,21 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.ops, "
             "ray_tpu_torch.models.convert, ray_tpu_torch.train, ray_tpu_torch.parallel, "
             "ray_tpu_torch.models.paged_kv, ray_tpu_torch.parallel.bootstrap, "
-            "ray_tpu_torch.util.collective; "
+            "ray_tpu_torch.util.collective, ray_tpu_torch.train.checkpoint, "
+            "ray_tpu_torch.train.config, ray_tpu_torch.train.session, "
+            "ray_tpu_torch.train.scaling_policy, ray_tpu_torch.train.torch_trainer; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def _raise(result):
+    """A fit's error, raised (a loop's failure comes back in the Result)."""
+    if result.error is not None:
+        raise result.error
 
 
 @pytest.fixture
@@ -71,9 +80,10 @@ def no_cuda(monkeypatch):
     "default_device", "init_params", "init_cache", "params_from_jax",
     "Generator", "ContinuousBatcher", "LLMEngine", "ContinuousLLMEngine",
     "init_state", "make_train_step", "make_eval_step", "single_device_mesh",
-    "PagedBatcher", "init_collective_group", "initialize_host",
+    "PagedBatcher", "init_collective_group", "initialize_host", "restore_state",
+    "LLMEngine_params_path", "TorchTrainer",
 ])
-def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
+def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
     cfg = T.config("debug")
     calls = {
         "default_device": lambda: ray_tpu_torch.default_device(),
@@ -91,6 +101,12 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         "PagedBatcher": lambda: PagedBatcher(cfg, {}),
         "init_collective_group": lambda: init_collective_group(1, 0),
         "initialize_host": lambda: initialize_host(local_process_specs(2)[0]),
+        "restore_state": lambda: restore_state("/nonexistent"),
+        "LLMEngine_params_path": lambda: LLMEngine(LLMConfig(model="debug",
+                                                             params_path="/nonexistent")),
+        "TorchTrainer": lambda: _raise(TorchTrainer(
+            lambda: init_state(cfg, default_optimizer(cfg)),
+            run_config=RunConfig(storage_path=str(tmp_path))).fit()),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

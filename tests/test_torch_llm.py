@@ -6,6 +6,8 @@ from key 0, converted with params_from_jax. Greedy tokens must be
 identical; caches agree to 1e-5 abs (fp32, summation order).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from ray_tpu.models import transformer as JT
 from ray_tpu.models.decoding import Generator as JGenerator
 from ray_tpu.models.decoding import SamplingParams as JSamplingParams
 from ray_tpu.models.decoding import init_cache as jinit_cache
+from ray_tpu.train.checkpoint import save_state as jax_save_state
 from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.continuous_batching import (
@@ -25,6 +28,7 @@ from ray_tpu_torch.models.continuous_batching import (
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.decoding import (
     Generator, SamplingParams, _sample, init_cache)
+from ray_tpu_torch.train import save_state
 
 PROMPTS = [[7, 9, 11], [100, 2, 3, 4, 5, 6, 88], [5, 17, 3, 101, 42, 1, 2, 3, 4, 5, 6]]
 
@@ -158,9 +162,64 @@ def test_engine_text_matches_jax(models):
     assert not ceng.batcher._thread.is_alive()
 
 
-def test_engine_params_path_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMEngine(LLMConfig(model="debug", params_path="/nonexistent"), device="cpu")
+@pytest.fixture(scope="module")
+def tiny_paths(tmp_path_factory):
+    """``tiny`` in fp32 from JAX's init (key 1) as numpy: written by orbax
+    (JAX's save_state) and by DCP (the port's save_state of the same
+    numpy, converted)."""
+    root = tmp_path_factory.mktemp("params")
+    jcfg = JT.config("tiny", dtype=jnp.float32, param_dtype=jnp.float32)
+    tcfg = T.config("tiny", dtype=torch.float32, param_dtype=torch.float32)
+    np_params = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.key(1)))
+    jax_save_state(jax.tree.map(jnp.asarray, np_params), str(root / "orbax"))
+    tparams = params_from_jax(np_params, tcfg, "cpu")
+    save_state(tparams, str(root / "dcp"))
+    return jcfg, tcfg, tparams, str(root / "orbax"), str(root / "dcp")
+
+
+def test_engine_params_path_matches_jax(tiny_paths):
+    """LLMEngine and ContinuousLLMEngine serving a saved params tree give
+    JAX's LLMEngine(params_path) greedy tokens."""
+    jcfg, tcfg, _, orbax_dir, dcp_dir = tiny_paths
+    sp = dict(max_tokens=12)
+    jeng = JLLMEngine(JLLMConfig(model=jcfg, max_len=64, params_path=orbax_dir,
+                                 sampling=JSamplingParams(**sp)))
+    ref = jeng.generate_tokens(PROMPTS)
+    config = LLMConfig(model=tcfg, max_len=64, params_path=dcp_dir,
+                       sampling=SamplingParams(**sp))
+    assert LLMEngine(config, device="cpu").generate_tokens(PROMPTS) == ref
+    ceng = ContinuousLLMEngine(config, device="cpu")
+    try:
+        futs = [ceng.batcher.submit(p, SamplingParams(**sp)) for p in PROMPTS]
+        assert [f.result(timeout=60) for f in futs] == ref
+    finally:
+        ceng.shutdown()
+    assert not ceng.batcher._thread.is_alive()
+
+
+def test_engine_params_path_equals_params(tiny_paths):
+    """params_path restores the saved tree bit for bit and serves the
+    tokens params= does; the two together raise."""
+    _, tcfg, tparams, _, dcp_dir = tiny_paths
+    config = LLMConfig(model=tcfg, max_len=64, params_path=dcp_dir,
+                       sampling=SamplingParams(max_tokens=12))
+    eng = LLMEngine(config, device="cpu")
+    for (path, a), (_, b) in zip(sorted(_items(eng.generator.params)),
+                                 sorted(_items(tparams))):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    given = LLMEngine(dataclasses.replace(config, params_path=None), params=tparams,
+                      device="cpu")
+    assert eng.generate(["hello world", "ray"]) == given.generate(["hello world", "ray"])
+    with pytest.raises(ValueError, match="not both"):
+        LLMEngine(config, params=tparams, device="cpu")
+
+
+def _items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
 
 
 def test_sampling_supports():

@@ -1,6 +1,6 @@
 """The ranks of the port's multi-rank tests (tests/test_torch_sharded_step*.py,
 tests/test_torch_pipeline*.py, tests/test_torch_ring_attention.py,
-tests/test_torch_collective.py).
+tests/test_torch_collective.py, tests/test_torch_checkpoint_mesh.py).
 
 ``World`` spawns one group of gloo ranks on the CPU, brought up over a
 FileStore in a temporary directory (no TCP port) or, when the cases
@@ -39,6 +39,7 @@ from ray_tpu_torch.parallel import (
     DEFAULT_RULES, MeshSpec, build_mesh, local_shard, mesh_groups, read_collectives,
     reset_collectives, shard_batch,
 )
+from ray_tpu_torch.parallel.sharding import placements
 
 LR = 3e-4
 BOOTSTRAP = "bootstrap"  # cases key: the HostGroupSpecs to bring the ranks up with
@@ -313,6 +314,41 @@ def ring(q, k, v, do, causal=True):
     (o * mine(do)).sum().backward()
     return {"o": o.detach().numpy(), "dq": tq.grad.numpy(), "dk": tk.grad.numpy(),
             "dv": tv.grad.numpy(), "sent": (sent_fwd, read_collectives()["send"])}
+
+
+CHECKPOINT_MESHES = {"fsdp4_tp2": {"fsdp": 4, "tensor": 2},
+                     "dp2_st2_tp2": {"data": 2, "stage": 2, "tensor": 2}}
+
+
+def checkpoint(preset, state, directory):
+    """The train state ``state`` (numpy, as state_from_jax takes it)
+    under ``MeshSpec(fsdp=world)``, saved with its shardings to
+    ``directory``, then restored onto each mesh of CHECKPOINT_MESHES with
+    that mesh's shardings (the first from DCP's metadata, the second
+    into a meta target): this rank's leaves of each, by path, as numpy.
+    Each restored state is saved again under its mesh, to ``directory``
+    + "_" + the mesh's name (shards replicated over data and cut over
+    stage). Also the error of a layout that cuts one dim over two mesh
+    axes."""
+    cfg = _cfg(preset, {})
+    opt = S.default_optimizer(cfg, lr=LR)
+    m1 = build_mesh(MeshSpec(fsdp=dist.get_world_size()), "cpu")
+    S.save_state(state_from_jax(state, cfg, mesh=m1), directory,
+                 shardings=S.state_shardings(cfg, opt, m1), mesh=m1)
+    meta = state_from_jax(state, cfg, device="meta")
+    out = {}
+    for i, (name, spec) in enumerate(CHECKPOINT_MESHES.items()):
+        m2 = build_mesh(MeshSpec(**spec), "cpu")
+        sh = S.state_shardings(cfg, opt, m2)
+        st = S.restore_state(directory, meta if i else None, sh, mesh=m2)
+        out[name] = {p: t.numpy() for p, t in _items(st)}
+        S.save_state(st, f"{directory}_{name}", shardings=sh, mesh=m2)
+        out[name + "_spec_of_wq"] = sh["params"]["blocks"]["wq"]
+    try:
+        placements((("data", "tensor"),), m2)
+    except NotImplementedError as e:
+        out["two_axes"] = str(e)
+    return out
 
 
 def collective_input(seed, rank, shape=(8, 3)):
