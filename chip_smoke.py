@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from the sources in this checkout and
 holds each kernel against its plain PyTorch version on the card: bf16
 inputs run the forward, dQ and dK/dV on the tensor cores (wgmma + TMA),
-fp32 inputs the CUDA-core kernels. Then it drives the port's two paths
+fp32 inputs the CUDA-core kernels. Then it drives the port's paths
 at full width, each with the kernels' launch counts set to 0 just
 before it and read just after:
 
@@ -60,7 +60,16 @@ before it and read just after:
   LLMEngine serving the step-4 checkpoint through LLMConfig.params_path
   (greedy tokens bit-identical to the loop's from its in-memory params),
   and a bf16 state saved under a mesh of one (CUDA DTensors over NCCL)
-  restored bit-identical.
+  restored bit-identical;
+- the RL learners: ray_tpu_torch.rllib's IMPALA, PPO, DQN, SAC and BC
+  learners (hidden 64, 64) from one numpy init, 5 updates on the card
+  held against the same 5 on the CPU, and each update timed;
+- Anakin: its learn step on the card held against the CPU's on one
+  trajectory of 4,096 envs, then ray_tpu_torch.rllib.Anakin.train() at
+  4,096 and 65,536 envs (rollout of the batched torch CartPole, V-trace
+  loss and Adam, all on the card): env steps/s, ms an update step, the
+  device's idle share, kernels a step, peak memory, and the episode
+  return over 20 train() calls.
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -177,6 +186,14 @@ COLLECTIVE_BYTES = 256 * 2 ** 20  # the timed bf16 allreduce
 # attention (long context is what the sequence axis is for), bf16; the
 # ring held against one flash call over the whole sequence, or against
 # the plain versions
+# the RL phases: every learner at its config's defaults with hidden
+# (64, 64), RL_UPDATES updates on the card and on the CPU from the same
+# numpy init, update ms the median of RL_TIMED; Anakin's train() at
+# thousands of envs (arXiv 2104.06272 §3), T = 16, 4 update steps a train()
+RL_HIDDEN = (64, 64)
+RL_UPDATES, RL_TIMED, RL_TOL = 5, 50, 2e-5
+ANAKIN_ENVS = (4096, 65536)
+ANAKIN_T, ANAKIN_ITERS, ANAKIN_TIMED, ANAKIN_RETURN_ITERS = 16, 4, 3, 20
 RING_SHAPES = [("llama3_8b_32k", 1, RING_N * 8192, 32, 8, 128, True, "flash"),
                ("noncausal_8k", 1, RING_N * 2048, 32, 8, 128, False, "flash"),
                ("plain_4k", 1, RING_N * 1024, 32, 8, 128, True, "plain")]
@@ -230,9 +247,10 @@ KINDS = (("flash attention kernels", ("flash_fwd_kernel", "flash_bwd_")),
 def profiled(fn, top: int = 8):
     """Run ``fn`` once under torch.profiler: wall ms, device-busy ms (the
     union of the device activity intervals, so nothing counts twice), the
-    summed device ms of each of KINDS (the rest as "other"), the launches
-    and ms of each flash, indexing and NCCL kernel, and the top device
-    activities by summed time."""
+    device activities and how many of them are kernels (not a memcpy or
+    memset), the summed device ms of each of KINDS (the rest as "other"),
+    the launches and ms of each flash, indexing and NCCL kernel, and the
+    top device activities by summed time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -264,6 +282,8 @@ def profiled(fn, top: int = 8):
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "device_activities": len(spans),
+            "device_kernels": sum(1 for *_, name in spans
+                                  if not name.startswith(("Memcpy", "Memset"))),
             "device_ms_by_kind": by_kind, "flash_kernels": members(KINDS[0][1], 80),
             "index_kernels": members(KINDS[2][1], 120),
             "nccl_kernels": members(KINDS[3][1], 80),
@@ -784,6 +804,225 @@ def collective_nccl(smi) -> None:
                 raise AssertionError(f"collectives over NCCL disagree with numpy: {bad}")
         finally:
             col.destroy_collective_group("smoke")
+
+
+def median_ms(fn, n: int) -> float:
+    """Median ms of ``fn`` over ``n`` calls after one warm-up, each call
+    between its own pair of CUDA events (a call that syncs the host, as a
+    learner's update does reading its metrics, counts its host time)."""
+    fn()
+    pairs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)) for _ in range(n)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in pairs]))
+
+
+def rl_mlp(rng, out: int) -> dict:
+    """init_mlp_params' distributions in numpy: normal · √(2/fan_in)
+    weights, zero biases, a zero head; obs 4 → RL_HIDDEN → ``out``."""
+    sizes = (4,) + RL_HIDDEN
+    layers = {}
+    for i in range(len(sizes) - 1):
+        w = rng.standard_normal((sizes[i], sizes[i + 1])) * (2.0 / sizes[i]) ** 0.5
+        layers[f"w{i}"] = w.astype(np.float32)
+        layers[f"b{i}"] = np.zeros(sizes[i + 1], np.float32)
+    layers["head_w"] = np.zeros((sizes[-1], out), np.float32)
+    layers["head_b"] = np.zeros(out, np.float32)
+    return layers
+
+
+def rl_batches(rng):
+    """Each learner's batch maker, from ``rng``: IMPALA one fragment of
+    T = 128, PPO a batch of 512, DQN and SAC 64 transitions."""
+    def fragment():
+        t = 128
+        return {"obs": rng.standard_normal((t, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, t).astype(np.int32),
+                "rewards": np.ones(t, np.float32),
+                "terminateds": rng.random(t) < 0.05, "truncs": np.zeros(t, np.bool_),
+                "logp": np.log(rng.uniform(0.3, 0.7, t)).astype(np.float32),
+                "last_obs": rng.standard_normal(4).astype(np.float32)}
+
+    def ppo_batch():
+        n = 512
+        return {"obs": rng.standard_normal((n, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, n).astype(np.int32),
+                "logp": np.log(rng.uniform(0.3, 0.7, n)).astype(np.float32),
+                "adv": rng.standard_normal(n).astype(np.float32),
+                "returns": rng.standard_normal(n).astype(np.float32)}
+
+    def transitions():
+        n = 64
+        return {"obs": rng.standard_normal((n, 4)).astype(np.float32),
+                "next_obs": rng.standard_normal((n, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, n).astype(np.int32),
+                "rewards": np.ones(n, np.float32), "terminateds": rng.random(n) < 0.05}
+
+    return {"impala": fragment, "ppo": ppo_batch, "dqn": transitions, "sac": transitions}
+
+
+def max_tree_diff(a, b) -> float:
+    return max(float(np.abs(x - dict(tree_items(b))[p]).max()) for p, x in tree_items(a))
+
+
+def metric_excess(got: dict, ref: dict, tol: float) -> tuple:
+    """(largest |got − ref|, largest |got − ref| − tol·(1 + |ref|)): the
+    tests' rule (absolute and relative tol), > 0 where a metric misses."""
+    d = {k: abs(got[k] - ref[k]) for k in ref}
+    return max(d.values()), max(d[k] - tol * (1 + abs(ref[k])) for k in ref)
+
+
+def rl_learners(smi) -> dict:
+    """The five learners of ray_tpu_torch.rllib (IMPALA, PPO, DQN, SAC, BC)
+    at their configs' defaults with hidden (64, 64): each from the same
+    numpy init, RL_UPDATES updates on the card and the same on the CPU
+    (TF32 is off), the largest param and metric difference gated at
+    RL_TOL (metrics as the tests hold them: absolute and relative); then
+    the card's update ms, the median of RL_TIMED. BC reads 10 episodes of
+    a scripted expert logged by collect_offline_data. Returns the flash
+    kernels' launches (none: the learners are MLPs)."""
+    from ray_tpu_torch import rllib as R
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import dqn, impala, ppo, sac
+
+    reset_launches(A)
+    with phase("rl_learners"):
+        rng = np.random.default_rng(SEED)
+        batches = rl_batches(rng)
+        data = tempfile.mkdtemp(prefix="bc_")
+        try:
+            R.collect_offline_data("CartPole-v1", lambda o: int(o[2] + 0.5 * o[3] > 0),
+                                   data, num_episodes=10, seed=SEED)
+            policy = {"pi": rl_mlp(rng, 2), "vf": rl_mlp(rng, 1)}
+            cases = {  # name: (learner on a device, numpy init, batch maker, one update)
+                "impala": (lambda d: impala.IMPALALearner(impala.IMPALAConfig(hidden=RL_HIDDEN),
+                                                          4, 2, device=d),
+                           policy, batches["impala"], lambda l, b: l.update(b)),
+                "ppo": (lambda d: ppo.PPOLearner(ppo.PPOConfig(hidden=RL_HIDDEN), 4, 2, device=d),
+                        policy, batches["ppo"], lambda l, b: l.update(b)),
+                "dqn": (lambda d: dqn.DQNLearner(dqn.DQNConfig(hidden=RL_HIDDEN), 4, 2, device=d),
+                        {"q": rl_mlp(rng, 2)}, batches["dqn"], lambda l, b: l.update(b)),
+                "sac": (lambda d: sac.SACLearner(sac.SACConfig(hidden=RL_HIDDEN), 4, 2, device=d),
+                        {"pi": rl_mlp(rng, 2), "q1": rl_mlp(rng, 2), "q2": rl_mlp(rng, 2),
+                         "log_alpha": np.float32(np.log(0.2))},
+                        batches["sac"], lambda l, b: l.update(b)),
+                "bc": (lambda d: R.BCConfig(hidden=RL_HIDDEN).offline_data(data).build(device=d),
+                       policy, lambda: None, lambda l, b: l.train()),
+            }
+            bad = {}
+            for name, (make, init, batch, update) in cases.items():
+                pair = {d: make(d) for d in ("cuda", "cpu")}
+                for learner in pair.values():
+                    learner.set_weights(init)
+                m_diff, m_excess = 0.0, float("-inf")
+                for _ in range(RL_UPDATES):
+                    b = batch()
+                    got, ref = (update(pair[d], b) for d in ("cuda", "cpu"))
+                    d_, e_ = metric_excess(got, ref, RL_TOL)
+                    m_diff, m_excess = max(m_diff, d_), max(m_excess, e_)
+                p_diff = max_tree_diff(pair["cuda"].get_weights_np(), pair["cpu"].get_weights_np())
+                b = batch()
+                ms = median_ms(lambda: update(pair["cuda"], b), RL_TIMED)
+                row = {"learner": name, "updates_vs_cpu": RL_UPDATES, "max_param_diff": p_diff,
+                       "max_metric_diff": m_diff, "metric_excess": m_excess, "tol": RL_TOL,
+                       "update_ms": ms, "timed": RL_TIMED, "last_metrics": got, "card": smi}
+                if name == "ppo":
+                    row["adam_steps_an_update"] = 4 * 512 // 128
+                emit(row)
+                if not (p_diff <= RL_TOL and m_excess <= 0.0):
+                    bad[name] = (p_diff, m_excess)
+            if bad:
+                raise AssertionError(f"learners on the card disagree with the CPU: {bad}")
+        finally:
+            shutil.rmtree(data, ignore_errors=True)
+    launches = read_launches(A)
+    emit({"rl_learners_launches": launches})
+    return launches
+
+
+def anakin_phases(smi) -> dict:
+    """Anakin (ray_tpu_torch.rllib.podracer) on the card, alone (no process
+    group). ``learn`` on the card against ``learn`` on the CPU, on one
+    trajectory of 4,096 envs with the same params and Adam state (after
+    one train(): the heads non-zero), params gated at RL_TOL; then
+    train() at ANAKIN_ENVS envs (T = 16, 4 update steps a call, hidden
+    (64, 64)): env steps/s and ms an update step (host clock around
+    synchronised train() calls, the median of ANAKIN_TIMED after a
+    warm-up), the device's idle share, kernels and activities of one
+    update step (torch.profiler), peak memory; and episode_return_mean
+    over ANAKIN_RETURN_ITERS train() calls at 4,096 envs, reported (not
+    gated). Returns the flash kernels' launches (none)."""
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import AnakinConfig
+    from ray_tpu_torch.rllib.adam import tree_map
+    from ray_tpu_torch.rllib.convert import params_from_jax, to_numpy
+
+    def config(n, iters=ANAKIN_ITERS):
+        return AnakinConfig(num_envs=n, rollout_fragment_length=ANAKIN_T,
+                            iterations_per_train=iters, hidden=RL_HIDDEN, seed=SEED)
+
+    reset_launches(A)
+    with phase("anakin"):
+        algo = config(ANAKIN_ENVS[0], 1).build(device="cuda")
+        algo.train()
+        _, traj = algo.rollout(algo.params, algo._env, algo._gen)
+        params_np = to_numpy(algo.params)
+        out = {}
+        for d in ("cuda", "cpu"):
+            params = params_from_jax(params_np, d)
+            state = tree_map(lambda t: t.detach().to(d, copy=True), algo.opt_state)
+            m = config(ANAKIN_ENVS[0], 1).build(device=d).learn(
+                params, state, {k: v.to(d) for k, v in traj.items()})
+            out[d] = (to_numpy(params), {k: float(v) for k, v in m.items()})
+        p_diff = max_tree_diff(out["cuda"][0], out["cpu"][0])
+        m_diff, m_excess = metric_excess(out["cuda"][1], out["cpu"][1], RL_TOL)
+        emit({"anakin_learn_vs_cpu": {"envs": ANAKIN_ENVS[0], "t": ANAKIN_T,
+                                      "max_param_diff": p_diff, "max_metric_diff": m_diff,
+                                      "metric_excess": m_excess, "tol": RL_TOL,
+                                      "metrics": out["cuda"][1]}})
+        if not (p_diff <= RL_TOL and m_excess <= 0.0):
+            raise AssertionError(f"Anakin's learn on the card disagrees with the CPU: "
+                                 f"params {p_diff}, metrics {m_excess}")
+        del algo, traj
+        for n in ANAKIN_ENVS:
+            algo = config(n).build(device="cuda")
+            algo.train()  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for _ in range(ANAKIN_TIMED):
+                t0 = time.perf_counter()
+                r = algo.train()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall = float(np.median(walls))
+            prof = profiled(algo._one_step)
+            steps = ANAKIN_ITERS * n * ANAKIN_T
+            row = {"anakin_train": {"envs": n, "t": ANAKIN_T, "update_steps_a_train": ANAKIN_ITERS,
+                                    "env_steps_per_s": steps / wall,
+                                    "ms_per_update_step": 1e3 * wall / ANAKIN_ITERS,
+                                    "train_s": walls, "peak_bytes": torch.cuda.max_memory_allocated(),
+                                    "one_update_step": prof, "total_loss": r["total_loss"],
+                                    "card": smi}}
+            emit(row)
+            if not np.isfinite(r["total_loss"]):
+                raise AssertionError(f"Anakin at {n} envs: loss {r['total_loss']}")
+            del algo
+            gc.collect()
+            torch.cuda.empty_cache()
+        algo = config(ANAKIN_ENVS[0]).build(device="cuda")
+        rets = [algo.train()["episode_return_mean"] for _ in range(ANAKIN_RETURN_ITERS)]
+        emit({"anakin_returns": {"envs": ANAKIN_ENVS[0], "iterations": ANAKIN_RETURN_ITERS,
+                                 "update_steps": ANAKIN_RETURN_ITERS * ANAKIN_ITERS,
+                                 "episode_return_mean": rets}})
+        if not all(np.isfinite(rets)):
+            raise AssertionError(f"Anakin's returns are not finite: {rets}")
+    launches = read_launches(A)
+    emit({"anakin_launches": launches})
+    return launches
 
 
 # the port's launch counters, by kernel name
@@ -2289,6 +2528,8 @@ def main() -> int:
     moe, moe_numbers = moe_train_steps(smi)
     moe_mesh = moe_mesh_train_steps(smi, moe_numbers)
     collective_nccl(smi)
+    rl = rl_learners(smi)
+    anakin = anakin_phases(smi)
     kernel_facts(kernels)
     for name, row in kernels.items():
         row["card"] = smi
@@ -2299,7 +2540,8 @@ def main() -> int:
                                    "ring": ring[name], "mesh_train_step": mesh[name],
                                    "pipeline_train_step": pipe[name],
                                    "moe_train_step": moe[name],
-                                   "moe_mesh_train_step": moe_mesh[name]}
+                                   "moe_mesh_train_step": moe_mesh[name],
+                                   "rl_learners": rl[name], "anakin": anakin[name]}
         if name != "flash_fwd":  # the training step is their main path
             row["launches"] = train[name]
 

@@ -11,8 +11,10 @@ decoding, continuous batching, the paged KV cache, weights from JAX),
 ``llm`` (the serving engines, from a checkpoint too), ``train`` (the
 train step, checkpoints through torch.distributed.checkpoint, the
 trainer with retry and resume), ``parallel`` (the device mesh, sharding
-rules and collectives of the sharded step, the multi-host bootstrap) and
-``util.collective`` (the collective API).
+rules and collectives of the sharded step, the multi-host bootstrap),
+``util.collective`` (the collective API) and ``rllib`` (the PPO, IMPALA,
+DQN, SAC and BC learners in process, and Anakin: rollout, V-trace and
+Adam on the card, its envs split over a process group's ranks).
 """
 
 from __future__ import annotations

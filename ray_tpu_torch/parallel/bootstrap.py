@@ -39,16 +39,21 @@ class HostGroupSpec:
     replacement_epoch: int = 0
 
 
+def check_slices(num_slices: int) -> None:
+    """More than one slice raises: multi-slice DCN is not ported
+    (ROADMAP.md Queue A item 7, 'multi-slice megascale_env')."""
+    if num_slices > 1:
+        raise NotImplementedError(
+            f"{num_slices} slices: multi-slice (DCN) bring-up is not ported "
+            "to ray_tpu_torch yet (ROADMAP.md Queue A item 7, 'multi-slice "
+            "megascale_env')")
+
+
 def megascale_env(spec: HostGroupSpec) -> Dict[str, str]:
-    """Env vars for cross-slice transport: none for one slice. More than
-    one slice raises: multi-slice DCN is not ported (ROADMAP.md Queue A
-    item 7, 'multi-slice megascale_env')."""
-    if spec.num_slices <= 1:
-        return {}
-    raise NotImplementedError(
-        f"{spec.num_slices} slices: multi-slice (DCN) bring-up is not ported "
-        "to ray_tpu_torch yet (ROADMAP.md Queue A item 7, 'multi-slice "
-        "megascale_env')")
+    """Env vars for cross-slice transport: none for one slice; more than
+    one raises (``check_slices``)."""
+    check_slices(spec.num_slices)
+    return {}
 
 
 def initialize_host(spec: HostGroupSpec, backend: str = "nccl") -> None:

@@ -4,13 +4,16 @@ reference: python/ray/air/config.py).
 ``ScalingConfig`` speaks GPUs: ``use_gpu`` and ``gpus_per_worker`` stand
 for the JAX package's ``use_tpu`` and ``chips_per_worker`` (resource key
 ``"GPU"``), and ``mesh`` is the port's ``MeshSpec``, the parallelism
-plan. A TPU slice's ``topology`` has no counterpart on a GPU host."""
+plan. A TPU slice's ``topology`` has no counterpart on a GPU host, and
+more than one slice (``num_slices``) raises, as the port's bootstrap
+does."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
+from ray_tpu_torch.parallel.bootstrap import check_slices
 from ray_tpu_torch.parallel.mesh import MeshSpec
 
 
@@ -28,6 +31,7 @@ class ScalingConfig:
     num_cpus_per_worker: float = 1.0
     resources_per_worker: Optional[Dict[str, float]] = None
     mesh: MeshSpec = dataclasses.field(default_factory=lambda: MeshSpec(data=-1))
+    num_slices: int = 1  # >1 = multi-slice; raises (not ported)
     # elastic scaling (reference: scaling_policy/elastic.py:29): when set,
     # each (re)start sizes the group to what the cluster can host, between
     # min_workers and num_workers
@@ -38,6 +42,7 @@ class ScalingConfig:
             raise ValueError(
                 f"topology={self.topology!r} names a TPU slice; a GPU worker group "
                 "is sized by num_workers and gpus_per_worker")
+        check_slices(self.num_slices)
 
     @property
     def elastic(self) -> bool:

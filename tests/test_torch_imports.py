@@ -56,7 +56,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch.models.paged_kv, ray_tpu_torch.parallel.bootstrap, "
             "ray_tpu_torch.util.collective, ray_tpu_torch.train.checkpoint, "
             "ray_tpu_torch.train.config, ray_tpu_torch.train.session, "
-            "ray_tpu_torch.train.scaling_policy, ray_tpu_torch.train.torch_trainer; "
+            "ray_tpu_torch.train.scaling_policy, ray_tpu_torch.train.torch_trainer, "
+            "ray_tpu_torch.rllib, ray_tpu_torch.rllib.podracer, ray_tpu_torch.rllib.adam, "
+            "ray_tpu_torch.rllib.convert, ray_tpu_torch.rllib.podracer.torch_env; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -286,6 +286,16 @@ def test_scaling_config_names_the_card():
         ttrain.ScalingConfig(topology="v5e-64")
 
 
+def test_scaling_config_num_slices():
+    """JAX's field: one slice is the default and builds; more raise the
+    bootstrap's NotImplementedError, naming its ROADMAP row."""
+    assert ttrain.ScalingConfig().num_slices == JScalingConfig().num_slices == 1
+    assert ttrain.ScalingConfig(num_slices=1, num_workers=2).num_workers == 2
+    assert JScalingConfig(num_slices=2).num_slices == 2
+    with pytest.raises(NotImplementedError, match="multi-slice megascale_env"):
+        ttrain.ScalingConfig(num_slices=2)
+
+
 @pytest.mark.parametrize("name", list(TRAINERS))
 def test_outer_session_restored_after_nested_fit(tmp_path, name):
     mod, trainer = TRAINERS[name]

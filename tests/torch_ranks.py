@@ -40,6 +40,8 @@ from ray_tpu_torch.parallel import (
     reset_collectives, shard_batch,
 )
 from ray_tpu_torch.parallel.sharding import placements
+from ray_tpu_torch.rllib.convert import params_from_jax as rl_params, to_numpy
+from ray_tpu_torch.rllib.podracer import anakin as A
 
 LR = 3e-4
 BOOTSTRAP = "bootstrap"  # cases key: the HostGroupSpecs to bring the ranks up with
@@ -425,6 +427,42 @@ def collectives(seed):
     col.barrier("a")
     col.destroy_collective_group("a")
     col.destroy_collective_group("b")
+    return out
+
+
+def anakin(cfg, params, traj):
+    """Anakin over the data axis of the world (``cfg``: AnakinConfig's
+    fields): ``learn`` from ``params`` (numpy) on this rank's envs of the
+    global trajectory ``traj`` (numpy [T, num_envs], last_obs [num_envs,
+    4]), its params after and its metrics; then one ``train()`` of its
+    own (rollout of this rank's envs from the broadcast init), its params
+    after and what it reports; the ValueError of envs that do not split
+    over the ranks; an Anakin at max_devices=1, alone; and the error of
+    a data axis over part of the group."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    algo = A.Anakin(A.AnakinConfig(**cfg), device="cpu")
+    per = cfg["num_envs"] // world
+    cut = slice(rank * per, (rank + 1) * per)
+    mine = {k: torch.from_numpy(np.ascontiguousarray(v[cut] if k == "last_obs" else v[:, cut]))
+            for k, v in traj.items()}
+    params = rl_params(params, "cpu")
+    metrics = algo.learn(params, algo.tx.init(params), mine)
+    out = {"params": to_numpy(params), "metrics": {k: float(v) for k, v in metrics.items()},
+           "num_devices": algo.num_devices, "envs": tuple(algo._env[0].shape),
+           "init": to_numpy(algo.params)}
+    report = algo.train()
+    out["trained"] = to_numpy(algo.params)
+    out["report"] = {k: v for k, v in report.items() if k != "stage_s"}
+    try:
+        A.Anakin(A.AnakinConfig(**dict(cfg, num_envs=cfg["num_envs"] + 2)), device="cpu")
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    out["alone"] = A.Anakin(A.AnakinConfig(**dict(cfg, num_envs=3, max_devices=1)),
+                            device="cpu").num_devices
+    try:
+        A.Anakin(A.AnakinConfig(**dict(cfg, max_devices=2)), device="cpu")
+    except NotImplementedError as e:
+        out["part_of_the_group"] = str(e)
     return out
 
 
