@@ -12,6 +12,17 @@ before it and read just after:
 - serving: llama3_8b (all 32 layers, random bf16 weights from seed 0)
   through ray_tpu_torch.llm.LLMEngine and ContinuousLLMEngine, and one
   prompt through Generator.generate_stream;
+- the actor runtime in local mode: the same weights put in the object
+  store of ray_tpu_torch.init(local_mode=True) and served from an actor
+  (num_gpus=1, max_concurrency=8) holding an LLMEngine and a
+  ContinuousLLMEngine over them (storage shared with the caller's): the
+  4 prompts (tokens bit-identical to the direct engine's), the 8 prompts
+  as 8 concurrent calls, a streaming method (tokens equal to the direct
+  stream), a num_gpus=1 task running the flash kernel at the prefill
+  shape (its CUDA output bit-identical to the direct call's, traced
+  through ray_tpu_torch.gpu_profile), a rejected request surfacing as
+  the engine's exception; µs per actor call and per put/get of a 64 MB
+  CUDA tensor;
 - paged serving: the same model and prompts through
   ray_tpu_torch.models.paged_kv.PagedBatcher (tokens held equal to the
   slot-dense batcher's), 8 requests over a shared 1,024-token prefix
@@ -366,12 +377,257 @@ def prompt_texts(lengths, seed):
     return out
 
 
-def serving_phases(kernels) -> dict:
+RUNTIME_CALLS = 1000  # no-op actor calls and put/get round trips timed
+RUNTIME_PUT_BYTES = 64 * 2 ** 20  # the CUDA tensor put and got
+RUNTIME_LEFT_BYTES = 256 * 2 ** 20  # allocated after shutdown beyond the start
+
+
+class ServedLlama:
+    """runtime_local's actor: an LLMEngine and a ContinuousLLMEngine over
+    the params of the ObjectRef its constructor is given."""
+
+    def __init__(self, config, params_ref):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.llm import ContinuousLLMEngine, LLMEngine
+
+        params = rt.get(params_ref)
+        self.engine = LLMEngine(config, params=params)
+        self.cengine = ContinuousLLMEngine(config, params=params)
+
+    def data_ptrs(self):
+        return [{k: t.data_ptr() for k, t in tree_items(p)}
+                for p in (self.engine.generator.params, self.cengine.batcher.params)]
+
+    def generate_tokens(self, ids):
+        return self.engine.generate_tokens(ids)
+
+    def submit(self, prompt):
+        return self.cengine.submit(prompt).result(timeout=600)
+
+    def stats(self):
+        return dict(self.cengine.batcher.stats)
+
+    def stream(self, ids, sampling):
+        yield from self.engine.generator.generate_stream(ids, sampling)
+
+    def ping(self):
+        return None
+
+    def close(self):
+        self.cengine.shutdown()
+
+
+def prefill_attention(q, k, v):
+    """runtime_local's num_gpus=1 task: one flash call, its output on the card."""
+    from ray_tpu_torch.ops import attention as A
+
+    return A.flash_attention(q, k, v, causal=True)
+
+
+def attention_grads(q, k, v, do):
+    """runtime_local's traced backward: dQ, dK, dV of one flash call, run
+    on a task's thread (the profiler runs on the caller's)."""
+    from ray_tpu_torch.ops import attention as A
+
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = A.flash_attention(q, k, v, causal=True)
+    return torch.autograd.grad(out, (q, k, v), do)
+
+
+def median_host_us(fn, n: int) -> float:
+    """Median µs of ``fn`` over ``n`` calls after one warm-up, host clock."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e6 * float(np.median(times))
+
+
+def runtime_local(cfg, config, params, ids4, prompts8, direct, smi) -> dict:
+    """The actor runtime in local mode: llama3_8b served from an actor over
+    the serving phase's params, with the kernels' counts from 0 around it.
+    ``direct`` holds the direct engines (``cengine``) and their results on
+    the same inputs (``tokens``, ``texts``, ``stream``). Returns the path's
+    launches; the actor and the runtime are gone on return."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.accelerators import get_accelerator_manager
+    from ray_tpu_torch.ops import attention as A
+
+    with phase("runtime_direct_round"):
+        # the 8 prompts again through the direct engine already built, the
+        # yardstick of the actor's round (uncounted: before the reset)
+        cstats = direct["cengine"].batcher.stats
+        out_before = cstats["tokens_out"]
+        t0 = time.perf_counter()
+        futs = [direct["cengine"].submit(p) for p in prompts8]
+        direct_texts = [f.result(timeout=600) for f in futs]
+        direct_s = time.perf_counter() - t0
+        direct_tokens_out = cstats["tokens_out"] - out_before
+        emit({"direct_continuous_s": direct_s, "tokens_out": direct_tokens_out,
+              "texts_equal_first_round": direct_texts == direct["texts"]})
+        if direct_texts != direct["texts"]:
+            raise AssertionError("the direct engine's second round gave other texts")
+
+    reset_launches(A)
+    with phase("runtime_local"):
+        mem_before = torch.cuda.memory_allocated()
+        rt.init(local_mode=True)
+        try:
+            res = rt.cluster_resources()
+            emit({"runtime_resources": res, "card": smi, "accelerator_type":
+                  get_accelerator_manager("GPU").get_current_node_accelerator_type()})
+            if "GPU" not in res or res["GPU"] != torch.cuda.device_count():
+                raise AssertionError(f"local mode advertises {res}, "
+                                     f"{torch.cuda.device_count()} cards")
+
+            ref = rt.put(params)
+            served = rt.remote(num_gpus=1, max_concurrency=8)(ServedLlama).remote(config, ref)
+            ptrs = rt.get(served.data_ptrs.remote())
+            caller_ptrs = {k: t.data_ptr() for k, t in tree_items(params)}
+            shared = all(p == caller_ptrs for p in ptrs)
+            emit({"actor_params_share_storage": shared, "leaves": len(caller_ptrs),
+                  "allocated_before_actor": mem_before,
+                  "allocated_with_actor": torch.cuda.memory_allocated()})
+            if not shared:
+                raise AssertionError("the actor's params are not the caller's tensors")
+
+            before = A.flash_fwd_launches
+            tokens = rt.get(served.generate_tokens.remote(ids4))
+            launches_gen = A.flash_fwd_launches - before
+            emit({"actor_tokens_equal_direct": tokens == direct["tokens"],
+                  "flash_fwd_launches": launches_gen})
+            if tokens != direct["tokens"] or launches_gen != cfg.layers:
+                raise AssertionError(f"actor generate_tokens: {launches_gen} launches, "
+                                     f"tokens equal: {tokens == direct['tokens']}")
+
+            before = A.flash_fwd_launches
+            t0 = time.perf_counter()
+            texts = rt.get([served.submit.remote(p) for p in prompts8])
+            actor_cont_s = time.perf_counter() - t0
+            launches_cont = A.flash_fwd_launches - before
+            stats = rt.get(served.stats.remote())
+            emit({"actor_continuous_s": actor_cont_s, "direct_continuous_s": direct_s,
+                  "actor_over_direct": actor_cont_s / direct_s, "stats": stats,
+                  "flash_fwd_launches": launches_cont,
+                  "texts_equal_direct": texts == direct["texts"]})
+            if stats["finished"] != len(prompts8) or \
+                    launches_cont != cfg.layers * stats["admitted"] or \
+                    texts != direct["texts"] or stats["tokens_out"] != direct_tokens_out:
+                raise AssertionError(f"actor continuous engine: {stats}, "
+                                     f"{launches_cont} launches, texts equal: "
+                                     f"{texts == direct['texts']}, direct tokens_out "
+                                     f"{direct_tokens_out}")
+
+            before = A.flash_fwd_launches
+            stream = served.stream.remote(ids4[0], config.sampling)
+            streamed = [rt.get(r) for r in stream]
+            launches_stream = A.flash_fwd_launches - before
+            emit({"actor_stream_equals_direct": streamed == direct["stream"],
+                  "stream_tokens": len(streamed), "flash_fwd_launches": launches_stream})
+            if streamed != direct["stream"] or launches_stream != cfg.layers:
+                raise AssertionError(f"actor stream {streamed} != {direct['stream']} "
+                                     f"({launches_stream} launches)")
+
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            q = torch.randn((1, MAX_LEN, 32, 128), generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn((1, MAX_LEN, 8, 128), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+            attend = rt.remote(num_gpus=1)(prefill_attention)
+            logdir = tempfile.mkdtemp(prefix="runtime_local_trace_")
+            try:
+                with rt.gpu_profile(logdir) as prof:
+                    out = rt.get(attend.remote(q, k, v))
+                    torch.cuda.synchronize()
+                with open(prof.path) as f:
+                    traced = "flash_fwd_kernel" in f.read()
+            finally:
+                shutil.rmtree(logdir, ignore_errors=True)
+            emit({"task_output_device": str(out.device), "trace_has_flash_fwd": traced})
+            if out.device != torch.device("cuda", 0) or not traced:
+                raise AssertionError(f"num_gpus=1 task: output on {out.device}, "
+                                     f"traced: {traced}")
+
+            # the error's name and message only: its traceback's frames hold
+            # the actor (and through it the engines and the KV cache)
+            rejected = None
+            try:
+                rt.get(served.generate_tokens.remote([[1] * (MAX_LEN + 1)]))
+            except ValueError as e:
+                rejected = (type(e).__name__, isinstance(e, rt.exceptions.RayTaskError),
+                            str(getattr(e, "cause", e)))
+            emit({"rejected_as": rejected})
+            if rejected is None or not rejected[1]:
+                raise AssertionError(f"an over-long prompt raised {rejected}")
+
+            call_us = median_host_us(lambda: rt.get(served.ping.remote()), RUNTIME_CALLS)
+            x = torch.empty(RUNTIME_PUT_BYTES // 2, dtype=torch.bfloat16, device="cuda")
+            same = rt.get(rt.put(x)) is x
+            put_get_us = median_host_us(lambda: rt.get(rt.put(x)), RUNTIME_CALLS)
+            emit({"actor_call_us": call_us, "put_get_cuda_us": put_get_us,
+                  "put_get_bytes": RUNTIME_PUT_BYTES, "get_put_is_same_tensor": same,
+                  "calls": RUNTIME_CALLS, "clock": "host, median", "card": smi})
+            if not same:
+                raise AssertionError("get(put(x)) is not x in local mode")
+            launches = read_launches(A)
+            # the path's counts are read; what follows compares, uncounted
+            expected = cfg.layers * (2 + stats["admitted"]) + 1  # generate, the 8, the stream; the task
+            if launches != {"flash_fwd": expected, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+                raise AssertionError(f"runtime_local launched {launches}, "
+                                     f"expected flash_fwd {expected}")
+            direct_out = A.flash_attention(q, k, v, causal=True)
+            emit({"task_output_equals_direct": bool(torch.equal(out, direct_out))})
+            if not torch.equal(out, direct_out):
+                raise AssertionError("the task's flash output differs from the direct call's")
+            # the sm90 backward launchers under the profiler, off its thread:
+            # a task's backward at the training shape, traced, against the
+            # same call made directly (uncounted, after the read)
+            B, S, H = BWD_SHAPES[0][1], BWD_SHAPES[0][2], BWD_SHAPES[0][4]
+            q, k, v, do = (torch.randn((B, S, H, 128), generator=gen, device="cuda").bfloat16()
+                           for _ in range(4))
+            logdir = tempfile.mkdtemp(prefix="runtime_local_trace_")
+            try:
+                with rt.gpu_profile(logdir) as prof:
+                    grads = rt.get(rt.remote(num_gpus=1)(attention_grads).remote(q, k, v, do))
+                    torch.cuda.synchronize()
+                with open(prof.path) as f:
+                    trace = f.read()
+            finally:
+                shutil.rmtree(logdir, ignore_errors=True)
+            traced_bwd = {name: name in trace for name in
+                          ("flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")}
+            del trace
+            grads_equal = all(torch.equal(a, b) for a, b in
+                              zip(grads, attention_grads(q, k, v, do)))
+            emit({"bwd_shape": [B, S, H, H, 128], "trace_has_bwd": traced_bwd,
+                  "task_grads_equal_direct": grads_equal})
+            if not all(traced_bwd.values()) or not grads_equal:
+                raise AssertionError(f"traced backward task: kernels {traced_bwd}, "
+                                     f"grads equal {grads_equal}")
+            rt.get(served.close.remote())
+            rt.kill(served)
+        finally:
+            rt.shutdown()
+        del ref, served, stream, out, direct_out, x, q, k, v, do, grads
+        gc.collect()
+        left = torch.cuda.memory_allocated() - mem_before
+        emit({"allocated_after_shutdown": mem_before + left,
+              "allocated_before_actor": mem_before, "left_bytes": left})
+        # the actor's KV cache (2 GiB) must be gone; what may stay is a
+        # cuBLAS workspace (32 MiB) of each thread that ran a matmul
+        if left > RUNTIME_LEFT_BYTES:
+            raise AssertionError(f"{left} bytes still allocated after kill and shutdown")
+    return launches
+
+
+def serving_phases(kernels, smi) -> tuple:
     """The serving path: serve llama3_8b at full width through LLMEngine and
-    ContinuousLLMEngine (launches counted from 0 around it), then time
+    ContinuousLLMEngine (launches counted from 0 around it), then through
+    the actor runtime in local mode (runtime_local) and paged KV, then time
     prefill and decode and hold the kernel prefill against the plain
-    formulation. Returns the serving path's launches; everything it
-    allocates is freed on return."""
+    formulation. Returns the serving, paged and runtime paths' launches;
+    everything it allocates is freed on return."""
     from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models import transformer as T
     from ray_tpu_torch.models.decoding import forward_cached, init_cache
@@ -455,6 +711,10 @@ def serving_phases(kernels) -> dict:
             if streamed != ref:
                 raise AssertionError(f"generate_stream {streamed} != generate {ref}")
 
+        runtime = runtime_local(
+            cfg, config, params, ids4, prompts8,
+            {"cengine": cengine, "tokens": outs, "texts": ctexts, "stream": streamed}, smi)
+
         paged = paged_phases(cfg, params, [tok.encode(p) for p in prompts8], batcher, greedy)
 
         with phase("serving_times"):
@@ -513,8 +773,7 @@ def serving_phases(kernels) -> dict:
     finally:
         if batcher is not None:
             batcher.shutdown()
-    return launches, paged
-
+    return launches, paged, runtime
 
 
 def timed_steps(step, n: int) -> float:
@@ -2507,7 +2766,7 @@ def main() -> int:
             del q, k, v, o, lse, o_ref, lse_ref
             torch.cuda.empty_cache()
 
-    serving, paged = serving_phases(kernels)
+    serving, paged, runtime = serving_phases(kernels, smi)
     gc.collect()
     torch.cuda.empty_cache()
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
@@ -2533,7 +2792,8 @@ def main() -> int:
     kernel_facts(kernels)
     for name, row in kernels.items():
         row["card"] = smi
-        row["launches_by_path"] = {"serving": serving[name], "paged_serving": paged[name],
+        row["launches_by_path"] = {"serving": serving[name], "runtime_local": runtime[name],
+                                   "paged_serving": paged[name],
                                    "train_step": train[name],
                                    "trainer_fit": fit[name],
                                    "serve_from_checkpoint": serve_ckpt[name],

@@ -281,14 +281,20 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
            int batch, int kv_heads, const int64_t* st, cudaStream_t stream) {
   using L = Smem<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  // A runtime call first: it makes the device's context current on this
+  // thread, so the libcuda calls that encode the tensor maps run inside it.
+  // A thread that has made no runtime call has no current context, and
+  // cuTensorMapEncodeTiled there crashed under CUPTI tracing (torch.profiler
+  // with CUDA activity) when the launch came from a thread other than the
+  // profiler's.
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
   int rc = encode_bshd<typename L::QT>(&tm_q, q, batch, a.sq, a.h, st, 0);
   if (rc == 0) rc = encode_bshd<typename L::KT>(&tm_k, k, batch, a.sk, kv_heads, st + 3, 1);
   if (rc == 0) rc = encode_bshd<typename L::KT>(&tm_v, v, batch, a.sk, kv_heads, st + 6, 2);
   if (rc == 0) rc = encode_bshd<typename L::QT>(&tm_do, dout, batch, a.sq, a.h, st + 9, 3);
   if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.sk + BK - 1) / BK, kv_heads, batch);
   flash_bwd_dkv_kernel_sm90<D><<<grid, NT, L::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_do, a);
   return static_cast<int>(cudaGetLastError());

@@ -58,7 +58,16 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch.train.config, ray_tpu_torch.train.session, "
             "ray_tpu_torch.train.scaling_policy, ray_tpu_torch.train.torch_trainer, "
             "ray_tpu_torch.rllib, ray_tpu_torch.rllib.podracer, ray_tpu_torch.rllib.adam, "
-            "ray_tpu_torch.rllib.convert, ray_tpu_torch.rllib.podracer.torch_env; "
+            "ray_tpu_torch.rllib.convert, ray_tpu_torch.rllib.podracer.torch_env, "
+            "ray_tpu_torch.exceptions, ray_tpu_torch.actor, ray_tpu_torch.remote_function, "
+            "ray_tpu_torch.dag, ray_tpu_torch.runtime_context, ray_tpu_torch.accelerators, "
+            "ray_tpu_torch.accelerators.gpu, ray_tpu_torch._private.worker, "
+            "ray_tpu_torch._private.local_mode, ray_tpu_torch._private.core, "
+            "ray_tpu_torch._private.ids, ray_tpu_torch._private.fastpath, "
+            "ray_tpu_torch._private.object_ref, ray_tpu_torch._private.memory_store, "
+            "ray_tpu_torch._private.reference_counter, ray_tpu_torch._private.task_spec, "
+            "ray_tpu_torch._private.async_compat, ray_tpu_torch._private.streaming, "
+            "ray_tpu_torch._private.profiling; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -83,7 +92,7 @@ def no_cuda(monkeypatch):
     "Generator", "ContinuousBatcher", "LLMEngine", "ContinuousLLMEngine",
     "init_state", "make_train_step", "make_eval_step", "single_device_mesh",
     "PagedBatcher", "init_collective_group", "initialize_host", "restore_state",
-    "LLMEngine_params_path", "TorchTrainer",
+    "LLMEngine_params_path", "TorchTrainer", "start_gpu_profile",
 ])
 def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
     cfg = T.config("debug")
@@ -109,6 +118,7 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
         "TorchTrainer": lambda: _raise(TorchTrainer(
             lambda: init_state(cfg, default_optimizer(cfg)),
             run_config=RunConfig(storage_path=str(tmp_path))).fit()),
+        "start_gpu_profile": lambda: ray_tpu_torch.start_gpu_profile(str(tmp_path)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
