@@ -29,10 +29,18 @@ before it and read just after:
   (prefix hits and prefilled tokens exact, the warm prefill's logits
   held against the cold one's) and an overcommitted pool (preemptions,
   every request complete); decode at batch 8 timed paged against dense;
+- Data batch inference: the same model's weights (seed 0) built by
+  ray_tpu_torch.llm.build_llm_processor over a ray_tpu_torch.data
+  Dataset of the 12 serving prompts in 3 blocks, in local mode (tokens
+  bit-identical to the cached engine's own generate on the same
+  batches; rows/s and completion tokens/s against the direct calls);
 - training: llama2_7b_lora (all 32 layers, bf16 params, B=8 x 2048,
   remat) through ray_tpu_torch.train.make_train_step, 2 warm-up and 5
   timed steps, after a two-layer fp32 step held against the same step
-  with attention through the plain versions;
+  with attention through the plain versions; then 3 more steps on the
+  same state fed by Data (24 rows of tokens through
+  random_shuffle().iter_torch_batches(): each batch bit-equal to the
+  plan's iter_batches rows, int32 on the card; ingest ms a batch);
 - mixture-of-experts training: mixtral_8x7b at full width with its 32
   layers cut to 4 (bf16 params, full fine-tune, B=8 x 2048, remat), 2
   warm-up and 5 timed steps, after one MoE layer at Mixtral width held
@@ -72,6 +80,11 @@ before it and read just after:
   (greedy tokens bit-identical to the loop's from its in-memory params),
   and a bf16 state saved under a mesh of one (CUDA DTensors over NCCL)
   restored bit-identical;
+- Tune: ray_tpu_torch.tune.Tuner over two LoRA learning rates in local
+  mode, one trial at a time, each a TorchTrainer.fit() of 2 full-width
+  llama2_7b_lora steps on a trial actor's thread (step 0's loss
+  bit-identical to the training steps', the best result the argmin,
+  memory freed after each trial);
 - the RL learners: ray_tpu_torch.rllib's IMPALA, PPO, DQN, SAC and BC
   learners (hidden 64, 64) from one numpy init, 5 updates on the card
   held against the same 5 on the CPU, and each update timed;
@@ -225,11 +238,18 @@ def phase(name):
     emit({"phase": name, "ok": True, "s": time.perf_counter() - t0})
 
 
+QUEUE_CYCLES_A_CALL = 200_000  # ~100 us of GPU clock: a call's launch takes the host ~44 us
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean ms of ``fn`` over ``iters`` runs after one warm-up, by CUDA events."""
+    """Mean ms of ``fn`` over ``iters`` runs after one warm-up, by CUDA events.
+    The card first spins while the host queues the runs, so a call shorter
+    than its launch is timed on the device and not at the host's launch
+    rate (on an H100, a 23 us flash call read 44 us without the spin)."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(QUEUE_CYCLES_A_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -255,13 +275,15 @@ KINDS = (("flash attention kernels", ("flash_fwd_kernel", "flash_bwd_")),
          ("NCCL collectives", ("nccl", "Nccl")))
 
 
-def profiled(fn, top: int = 8):
+def profiled(fn, top: int = 8, counts: bool = False):
     """Run ``fn`` once under torch.profiler: wall ms, device-busy ms (the
     union of the device activity intervals, so nothing counts twice), the
     device activities and how many of them are kernels (not a memcpy or
     memset), the summed device ms of each of KINDS (the rest as "other"),
     the launches and ms of each flash, indexing and NCCL kernel, and the
-    top device activities by summed time."""
+    top device activities by summed time; with ``counts``, every device
+    activity's name and count as well. Raises if the profile holds no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -273,6 +295,10 @@ def profiled(fn, top: int = 8):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:  # every fn profiled here runs on the card
+        raise AssertionError("a profile holds no device activity: the profiler lost its "
+                             "records (ROADMAP.md Queue C, 'a trace loses its device "
+                             "activities')")
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for start, stop, name in spans:
         busy_us += max(0.0, stop - max(start, end))
@@ -290,7 +316,8 @@ def profiled(fn, top: int = 8):
         return {name[:width]: {"count": n, "ms": us / 1e3}
                 for name, (n, us) in by_name.items() if any(s_ in name for s_ in subs)}
 
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    extra = {"activity_counts": {k: n for k, (n, _) in by_name.items()}} if counts else {}
+    return {**extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "device_activities": len(spans),
             "device_kernels": sum(1 for *_, name in spans
@@ -300,6 +327,31 @@ def profiled(fn, top: int = 8):
             "nccl_kernels": members(KINDS[3][1], 80),
             "top_device_activities": [{"name": k[:80], "count": n, "ms": us / 1e3}
                                       for k, (n, us) in tops]}
+
+
+def trace_holds(path: str) -> dict:
+    """What a gpu_profile trace (Chrome JSON) holds: its events by category,
+    the kernels, the flash forward kernels, and the runtime or driver
+    launch calls with the threads that made them; the span of its events
+    and of its kernels, in us."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "aunch" in e.get("name", "")]
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+
+    def span(es):
+        return [min(float(e["ts"]) for e in es), max(float(e["ts"]) for e in es)] if es else None
+
+    return {"by_category": cats, "kernels": len(kernels),
+            "flash": sum("flash_fwd_kernel" in e.get("name", "") for e in kernels),
+            "launch_calls": [e["name"] for e in launches],
+            "launch_threads": sorted({str(e.get("tid")) for e in launches}),
+            "span_us": span(events), "launch_span_us": span(launches),
+            "kernel_span_us": span(kernels)}
 
 
 def kept_pairs(sq, sk, causal):
@@ -540,14 +592,15 @@ def runtime_local(cfg, config, params, ids4, prompts8, direct, smi) -> dict:
                 with rt.gpu_profile(logdir) as prof:
                     out = rt.get(attend.remote(q, k, v))
                     torch.cuda.synchronize()
-                with open(prof.path) as f:
-                    traced = "flash_fwd_kernel" in f.read()
+                held = trace_holds(prof.path)
             finally:
                 shutil.rmtree(logdir, ignore_errors=True)
-            emit({"task_output_device": str(out.device), "trace_has_flash_fwd": traced})
+            traced = held["flash"] > 0
+            emit({"task_output_device": str(out.device), "trace_has_flash_fwd": traced,
+                  "trace_holds": held})
             if out.device != torch.device("cuda", 0) or not traced:
                 raise AssertionError(f"num_gpus=1 task: output on {out.device}, "
-                                     f"traced: {traced}")
+                                     f"traced: {traced}, the trace held {held}")
 
             # the error's name and message only: its traceback's frames hold
             # the actor (and through it the engines and the KV cache)
@@ -776,6 +829,25 @@ def serving_phases(kernels, smi) -> tuple:
     return launches, paged, runtime
 
 
+def torch_calls(fn) -> list:
+    """The ATen ops ``fn`` dispatches, in order (host side, exact)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Log() as log:
+        fn()
+    torch.cuda.synchronize()
+    return log.ops
+
+
 def timed_steps(step, n: int) -> float:
     """Host ms per call of ``step`` over ``n`` calls, synchronised."""
     step()
@@ -983,21 +1055,43 @@ def paged_phases(cfg, params, ids8, dense, greedy) -> dict:
                 ms["dense_again"] = timed_steps(dense_step, 16)
                 ms["paged_again"] = timed_steps(paged_step, 16)
                 # one step a profile (a profile of 3,000 device activities
-                # takes seconds to read); the paged step twice
-                prof = {"paged": profiled(paged_step), "dense": profiled(dense_step),
-                        "paged_again": profiled(paged_step)}
-                one = [prof["paged"]["device_activities"], prof["paged_again"]["device_activities"]]
+                # takes seconds to read); the paged step three times
+                prof = {"paged": profiled(paged_step, counts=True),
+                        "dense": profiled(dense_step),
+                        "paged_again": profiled(paged_step, counts=True),
+                        "paged_third": profiled(paged_step, counts=True)}
+                calls = [torch_calls(paged_step), torch_calls(paged_step)]
             for page in held:
                 pb.kv.decref(page)
+            # every paged step runs the same device activities, by name and
+            # count; CUPTI's record of one step is not exact (it dropped one
+            # layer's 98 activities from one of 24 profiles of this step, and
+            # held 2 more in another), so two of the three profiles must agree
+            # and the odd one's difference is printed. The ATen ops the step
+            # dispatches are held equal too (host side, exact).
+            tallies = [prof[k].pop("activity_counts")
+                       for k in ("paged", "paged_again", "paged_third")]
+            agree = [i for i, t in enumerate(tallies)
+                     if any(t == u for j, u in enumerate(tallies) if j != i)]
+            ref = tallies[agree[0] if agree else 0]
+            odd = {i: {k[:100]: t.get(k, 0) - ref.get(k, 0) for k in set(t) | set(ref)
+                       if t.get(k, 0) != ref.get(k, 0)}
+                   for i, t in enumerate(tallies) if i not in agree}  # name: count - ref's
             row = {"decode_ms_per_token": ms, "batch": 8, "lengths": lengths,
-                   "clock": "host, synchronized, 16 steps", "paged_step_activities": one}
+                   "clock": "host, synchronized, 16 steps",
+                   "paged_step_activities": [sum(t.values()) for t in tallies],
+                   "paged_profiles_agreeing": agree, "paged_profiles_odd": odd,
+                   "paged_step_torch_calls": [len(c) for c in calls]}
             for name, p in prof.items():
                 row[f"{name}_device_idle_share"] = p["device_idle_share"]
                 row[f"{name}_device_busy_ms"] = p["device_busy_ms"]
                 row[f"{name}_device_ms_by_kind"] = p["device_ms_by_kind"]
             emit(row)
-            if one[0] != one[1]:
-                raise AssertionError(f"two paged decode steps ran {one} device activities")
+            if len(agree) < 2:
+                raise AssertionError(f"no two profiles of the paged decode step ran the "
+                                     f"same device activities: {row}")
+            if not calls[0] or calls[0] != calls[1]:
+                raise AssertionError(f"two paged decode steps made different torch calls: {row}")
     finally:
         for b in (pb, over):
             if b is not None:
@@ -1622,8 +1716,9 @@ def train_steps(smi) -> dict:
     """The training path at full width: llama2_7b_lora, all 32 layers, bf16
     params (bench.py:476-480 sets them for one chip), B=8 x 2048, remat,
     tokens from seed 0 and the same batch each step as bench.py's
-    _run_bench. Returns one step's kernel launches and the run's numbers
-    (for mesh_train_steps)."""
+    _run_bench. Then data_train_ingest on the same state. Returns one
+    step's kernel launches and the run's numbers (for mesh_train_steps;
+    with the Data-fed step's launches)."""
     from ray_tpu_torch import train as S
     from ray_tpu_torch.models import transformer as T
     from ray_tpu_torch.ops import attention as A
@@ -1692,9 +1787,290 @@ def train_steps(smi) -> dict:
               "lora_leaves_not_moved_in_every_layer": unmoved})
         if changed or unmoved:
             raise AssertionError(f"frozen leaves changed {changed}; LoRA leaves unmoved {unmoved}")
-        del state, params, frozen, lora0
-        torch.cuda.empty_cache()
+    summary["data_train_ingest_launches"] = data_train_ingest(smi, cfg, run, state, med)
+    del state, params, frozen, lora0
+    torch.cuda.empty_cache()
     return launches, summary
+
+
+DATA_BLOCKS = 3  # data_llm_batch: the 4 serving prompts, then the 8, four rows a block
+DATA_PAIRS = (("direct", "data"), ("data", "direct"), ("direct", "data"))  # timed passes
+INGEST_STEPS = 3  # data_train_ingest: Data-fed steps on train_steps' state
+TUNE_LRS = (3e-4, 1e-3)  # tune_trials' grid: default_optimizer's lr, and a larger one
+TUNE_STEPS = 2  # steps of each trial's TorchTrainer loop
+
+
+class IdsTokenizer:
+    """data_llm_batch's tokenizer: ByteTokenizer's encode and ids; decode
+    writes the ids out, so the Dataset's output column carries the exact
+    tokens (random weights rarely emit byte ids)."""
+
+    vocab_size = 257
+    eos_token_id = 256
+
+    def encode(self, text):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def data_llm_batch(smi) -> dict:
+    """Batch inference over a Dataset: 12 prompt rows (the serving
+    prompts: the 4, then the 8) in 3 blocks of 4, in local mode, through
+    build_llm_processor(LLMConfig(llama3_8b, seed 0), batch_size=4) and
+    take_all(), with the kernels' counts from 0 around it (the first block
+    builds the engine). Gates: every completion's tokens equal the cached
+    engine's own generate on the same 3 batches, bit for bit; flash_fwd
+    launches = layers x 3 (one prefill a batch); the card's allocated
+    memory back to its level before once the engine cache is cleared.
+    Then the same plan again, warm, against the 3 direct generate calls,
+    three pairs in alternating order: medians of rows/s, completion
+    tokens/s and the wall ratio (every pass's tokens gated equal too).
+    Returns the launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as D
+    from ray_tpu_torch.llm import LLMConfig, SamplingParams, build_llm_processor
+    from ray_tpu_torch.llm import batch as LB
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    cfg = T.config("llama3_8b", param_dtype=torch.bfloat16)
+    prompts = (prompt_texts([100, 600, 1100, 1500], SEED)
+               + prompt_texts(np.linspace(100, 1500, 8).astype(int).tolist(), SEED + 1))
+    per_block = len(prompts) // DATA_BLOCKS
+    config = LLMConfig(model=cfg, max_len=MAX_LEN, seed=SEED, tokenizer=IdsTokenizer(),
+                       sampling=SamplingParams(max_tokens=MAX_TOKENS))
+    with phase("data_llm_batch"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        rt.init(local_mode=True)
+        try:
+            ds = D.from_items([{"prompt": p, "row": i} for i, p in enumerate(prompts)],
+                              override_num_blocks=DATA_BLOCKS)
+            process = build_llm_processor(config, batch_size=per_block)
+            # ---- the main path: counts from 0, read right after ----------
+            reset_launches(A)
+            t0 = time.perf_counter()
+            rows = process(ds).take_all()
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            launches = read_launches(A)
+            # ---- end of the main path ------------------------------------
+            eng = LB._engine_for(config)
+            batches = [prompts[i:i + per_block] for i in range(0, len(prompts), per_block)]
+            passes = {"direct": lambda: [t for b in batches for t in eng.generate(b)],
+                      "data": lambda: [r["generated"] for r in process(ds).take_all()]}
+            walls, outs = {"direct": [], "data": []}, {"direct": [], "data": []}
+            for order in DATA_PAIRS:  # alternating which side runs first
+                for side in order:
+                    t0 = time.perf_counter()
+                    outs[side].append(passes[side]())
+                    torch.cuda.synchronize()
+                    walls[side].append(time.perf_counter() - t0)
+            direct_s, warm_s = (float(np.median(walls[k])) for k in ("direct", "data"))
+            got = [r["generated"] for r in rows]
+            tokens = sum(len(t.split()) for t in got)
+            row = {"rows": len(rows), "blocks": DATA_BLOCKS, "batch_size": per_block,
+                   "cold_s": cold_s, "warm_s": walls["data"], "direct_s": walls["direct"],
+                   "data_over_direct": warm_s / direct_s,
+                   "pair_ratios": [d / r for d, r in zip(walls["data"], walls["direct"])],
+                   "rows_per_s": len(rows) / warm_s,
+                   "completion_tokens": tokens, "completion_tokens_per_s": tokens / warm_s,
+                   "tokens_equal_direct": all(o == got for o in outs["direct"]),
+                   "warm_equal_cold": all(o == got for o in outs["data"]),
+                   "rows_in_order": [r["row"] for r in rows] == list(range(len(prompts))),
+                   "launches": launches, "clock": "host, synchronized", "card": smi}
+            del eng, rows, passes, outs
+        finally:
+            rt.shutdown()
+            LB._ENGINE_CACHE.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["allocated_before"], row["allocated_after"] = before, torch.cuda.memory_allocated()
+        emit(row)
+        want = {"flash_fwd": cfg.layers * DATA_BLOCKS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if not (row["tokens_equal_direct"] and row["warm_equal_cold"] and row["rows_in_order"]
+                and launches == want and tokens > 0
+                and row["allocated_after"] <= before + RUNTIME_LEFT_BYTES):
+            raise AssertionError(f"data_llm_batch: {row}")
+    return launches
+
+
+def data_train_ingest(smi, cfg, run, state, step_ms_median) -> dict:
+    """The train step fed by Data: 24 rows of tokens from seed 0 through
+    from_numpy(...).random_shuffle(seed=0).iter_torch_batches(batch_size=8)
+    into train_steps' step function and state (after its timed steps, so
+    no second init), 3 steps, each with the counts from 0 around the
+    ingest and the step. Gates: each batch on the card, int32 (JAX's
+    dtype for int64 rows), bit-equal to the same plan's iter_batches rows;
+    launches as train_steps' (64/32/32); finite losses. Prints step ms
+    against train_steps' median, ingest ms a batch, and the idle share of
+    one profiled Data-fed step. Returns a step's launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as D
+    from ray_tpu_torch.ops import attention as A
+
+    want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+            "flash_bwd_dkv": cfg.layers}
+    with phase("data_train_ingest"):
+        rt.init(local_mode=True)
+        try:
+            rows = np.random.RandomState(SEED).randint(
+                0, cfg.vocab_size, (INGEST_STEPS * TRAIN_BATCH, MAX_LEN))
+            ds = D.from_numpy(rows, column="tokens").random_shuffle(seed=SEED)
+            expect = [torch.from_numpy(b["tokens"].astype(np.int32)) for b in
+                      ds.iter_batches(batch_size=TRAIN_BATCH, drop_last=True)]
+            steps, bad = [], []
+            it = ds.iter_torch_batches(batch_size=TRAIN_BATCH)
+            for i in range(INGEST_STEPS):
+                # ---- the main path: counts from 0, read right after ------
+                reset_launches(A)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(it)
+                torch.cuda.synchronize()
+                ingest_ms = 1e3 * (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                state, m = run(state, batch)
+                torch.cuda.synchronize()
+                step_ms = 1e3 * (time.perf_counter() - t0)
+                launches = read_launches(A)
+                # ---- end of the main path --------------------------------
+                tok = batch["tokens"]
+                equal = (tok.device.type == "cuda" and tok.dtype == torch.int32
+                         and torch.equal(tok.cpu(), expect[i]))
+                steps.append({"step": i, "ingest_ms": ingest_ms, "step_ms": step_ms,
+                              "loss": float(m["loss"]), "launches": launches,
+                              "batch_equal_iter_batches": equal})
+                emit({"data_train_ingest": steps[-1]})
+                if not (equal and launches == want and np.isfinite(steps[-1]["loss"])):
+                    bad.append(i)
+            fed = ds.iter_torch_batches(batch_size=TRAIN_BATCH)
+            prof = profiled(lambda: run(state, next(fed)), top=12)
+        finally:
+            rt.shutdown()
+        med = sorted(s["step_ms"] for s in steps)[len(steps) // 2]
+        emit({"data_train_ingest_summary": {
+            "rows": len(rows), "steps": INGEST_STEPS, "step_ms_median": med,
+            "train_steps_ms_median": step_ms_median, "over_train_steps": med / step_ms_median,
+            "ingest_ms": [s["ingest_ms"] for s in steps],
+            "losses": [s["loss"] for s in steps], "clock": "host, synchronized",
+            "card": smi}})
+        emit({"profile": "data_fed_train_step", "card": smi, **prof})
+        if bad:
+            raise AssertionError(f"data_train_ingest: steps {bad} failed: {steps}")
+    return launches
+
+
+def tune_trials(smi, unsharded) -> dict:
+    """Train-in-Tune at full width: Tuner over grid_search of two LoRA
+    learning rates (default_optimizer's 3e-4 and 1e-3), in local mode,
+    one trial at a time, each asking for one card
+    (resources_per_trial={"GPU": 1}). A trial runs TorchTrainer.fit()
+    (one worker, in process) whose loop takes 2 llama2_7b_lora steps (bf16,
+    B=8 x 2048, remat) on train_steps' seed and batch, reports each step
+    and saves no checkpoint; the trial then reports the steps to Tune.
+    The kernels run on the trial's thread. Gates: each trial's step-0 loss
+    and the 3e-4 trial's step-1 loss bit-identical to train_steps'; the
+    trials' step-1 losses differ; get_best_result() is the argmin of the
+    last loss; launches a step as train_steps' (64/32/32); the card's
+    allocated memory back to its level before at each trial's start and
+    after the fit. Prints each trial's wall time. Returns the path's
+    launches (both trials)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    cfg = T.config("llama2_7b_lora", param_dtype=torch.bfloat16)
+    want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+            "flash_bwd_dkv": cfg.layers}
+    root = tempfile.mkdtemp(prefix="tune_trials_")
+    rec = {}
+
+    def trial(config):
+        gc.collect()
+        t_trial = time.perf_counter()
+        start_mem = torch.cuda.memory_allocated()
+        steps = []
+
+        def loop(cfg_):
+            opt = S.default_optimizer(cfg, lr=cfg_["lr"])
+            state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+            tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+                0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+            run = S.make_train_step(cfg, opt, device="cuda")
+            for i in range(TUNE_STEPS):
+                before = read_launches(A)
+                t0 = time.perf_counter()
+                state, m = run(state, {"tokens": tokens})
+                loss = float(m["loss"])
+                after = read_launches(A)
+                steps.append({"step": i, "loss": loss, "ms": 1e3 * (time.perf_counter() - t0),
+                              "launches": {k: after[k] - before[k] for k in after}})
+                S.report({"loss": loss, "step": i})
+
+        res = S.TorchTrainer(loop, train_loop_config={"lr": config["lr"]},
+                             run_config=S.RunConfig(name=f"lr_{config['lr']}",
+                                                    storage_path=root)).fit()
+        if res.error is not None:
+            raise res.error
+        gc.collect()
+        rec[config["lr"]] = {"steps": steps, "start_mem": start_mem,
+                             "end_mem": torch.cuda.memory_allocated(),
+                             "wall_s": time.perf_counter() - t_trial}
+        for s in steps:
+            tune.report({"loss": s["loss"], "training_iteration": s["step"] + 1})
+
+    with phase("tune_trials"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        rt.init(local_mode=True)
+        try:
+            # ---- the main path: counts from 0, read right after ----------
+            reset_launches(A)
+            t0 = time.perf_counter()
+            grid = tune.Tuner(trial, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+                              tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                                          max_concurrent_trials=1),
+                              resources_per_trial={"GPU": 1}).fit()
+            fit_s = time.perf_counter() - t0
+            launches = read_launches(A)
+            # ---- end of the main path ------------------------------------
+        finally:
+            rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated()
+        ref = [m["loss"] for m in unsharded["metrics"][:TUNE_STEPS]]
+        losses = {lr: [s["loss"] for s in r["steps"]] for lr, r in rec.items()}
+        best = grid.get_best_result()
+        argmin = min(losses, key=lambda lr: losses[lr][-1])
+        row = {"trials": [{"lr": lr, **r} for lr, r in rec.items()], "fit_s": fit_s,
+               "errors": grid.errors, "reference_losses": ref,
+               "step0_bit_identical": all(l_[0] == ref[0] for l_ in losses.values()),
+               "default_lr_bit_identical": losses.get(TUNE_LRS[0]) == ref,
+               "step1_differ": len({l_[-1] for l_ in losses.values()}) == len(TUNE_LRS),
+               "best_lr": best.config["lr"], "argmin_lr": argmin, "launches": launches,
+               "allocated_before": before, "allocated_after": after,
+               "clock": "host, synchronized", "card": smi}
+        emit(row)
+        steps = [s for r in rec.values() for s in r["steps"]]
+        mem_ok = all(r["start_mem"] <= before + RUNTIME_LEFT_BYTES
+                     and r["end_mem"] <= before + RUNTIME_LEFT_BYTES for r in rec.values())
+        if not (not grid.errors and len(rec) == len(TUNE_LRS)
+                and len(steps) == TUNE_STEPS * len(TUNE_LRS)
+                and row["step0_bit_identical"] and row["default_lr_bit_identical"]
+                and row["step1_differ"] and best.config["lr"] == argmin
+                and all(s["launches"] == want for s in steps) and mem_ok
+                and after <= before + RUNTIME_LEFT_BYTES):
+            raise AssertionError(f"tune_trials: {row}")
+    return launches
 
 
 FIT_STEPS, FIT_SAVE_AT, FIT_FAIL_AFTER = 5, (2, 4), 2  # steps 0-4; save after 2 and 4
@@ -2770,6 +3146,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
+    data_batch = data_llm_batch(smi)
 
     flash_bwd_vs_plain(kernels, smi)
     ring = ring_vs_flash(smi)
@@ -2778,6 +3155,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fit, serve_ckpt = trainer_phases(smi, train_numbers)
+    trials = tune_trials(smi, train_numbers)
     checkpoint_mesh_of_one(smi)
     mesh = mesh_train_steps(smi, train_numbers)
     gc.collect()
@@ -2794,7 +3172,11 @@ def main() -> int:
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "runtime_local": runtime[name],
                                    "paged_serving": paged[name],
+                                   "data_llm_batch": data_batch[name],
                                    "train_step": train[name],
+                                   "data_train_ingest":
+                                       train_numbers["data_train_ingest_launches"][name],
+                                   "tune_trials": trials[name],
                                    "trainer_fit": fit[name],
                                    "serve_from_checkpoint": serve_ckpt[name],
                                    "ring": ring[name], "mesh_train_step": mesh[name],

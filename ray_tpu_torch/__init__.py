@@ -12,9 +12,13 @@ decoding, continuous batching, the paged KV cache, weights from JAX),
 train step, checkpoints through torch.distributed.checkpoint, the
 trainer with retry and resume), ``parallel`` (the device mesh, sharding
 rules and collectives of the sharded step, the multi-host bootstrap),
-``util.collective`` (the collective API) and ``rllib`` (the PPO, IMPALA,
+``util.collective`` (the collective API), ``rllib`` (the PPO, IMPALA,
 DQN, SAC and BC learners in process, and Anakin: rollout, V-trace and
-Adam on the card, its envs split over a process group's ranks).
+Adam on the card, its envs split over a process group's ranks), ``data``
+(Datasets run in process, ``iter_torch_batches`` feeding the train step,
+and ``llm.build_llm_processor``'s batch inference over them) and
+``tune`` (Tuner trials as local-mode actors, its searchers and
+schedulers).
 
 The runtime's public API is ``ray_tpu``'s (reference:
 python/ray/__init__.py): ``init, shutdown, remote, get, put, wait, kill,

@@ -1,6 +1,6 @@
-"""The port stands alone: ray_tpu_torch and chip_smoke.py import nothing of
-JAX or of the JAX package, and no entry point runs on the CPU unless a
-caller asks for it."""
+"""The port stands alone: ray_tpu_torch, chip_smoke.py and chip_repeats.py
+import nothing of JAX or of the JAX package, and no entry point runs on the
+CPU unless a caller asks for it."""
 
 import ast
 import os
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine
+from ray_tpu_torch.data import Dataset
+from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine, build_llm_processor
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
 from ray_tpu_torch.models.convert import params_from_jax
@@ -30,7 +31,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                             ROOT / "chip_repeats.py"]
 
 
 def _imported_modules(path):
@@ -67,13 +69,33 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch._private.object_ref, ray_tpu_torch._private.memory_store, "
             "ray_tpu_torch._private.reference_counter, ray_tpu_torch._private.task_spec, "
             "ray_tpu_torch._private.async_compat, ray_tpu_torch._private.streaming, "
-            "ray_tpu_torch._private.profiling; "
+            "ray_tpu_torch._private.profiling, ray_tpu_torch.data, ray_tpu_torch.data.block, "
+            "ray_tpu_torch.data.dataset, ray_tpu_torch.data.read_api, "
+            "ray_tpu_torch.data._internal.executor, ray_tpu_torch.llm.batch, "
+            "ray_tpu_torch.tune, ray_tpu_torch.tune.search, ray_tpu_torch.tune.schedulers, "
+            "ray_tpu_torch.tune.tpe, ray_tpu_torch.tune.tuner; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def test_data_and_tune_need_no_pandas_or_pyarrow():
+    """The card's machine has neither package: Data, Tune and the LLM
+    processor import, and a plan runs, with both unimportable."""
+    code = ("import sys; sys.modules['pandas'] = sys.modules['pyarrow'] = None; "
+            "import ray_tpu_torch as rt, ray_tpu_torch.data as d, ray_tpu_torch.tune, "
+            "ray_tpu_torch.llm.batch; rt.init(local_mode=True); "
+            "ds = d.range(40, override_num_blocks=4).map_batches(lambda b: {'id': b['id'] * 2})"
+            ".random_shuffle(seed=0).sort('id'); "
+            "print(ds.sum('id'), [len(b['id']) for b in ds.iter_batches(batch_size=16)]); "
+            "rt.shutdown()")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "1560.0 [16, 16, 8]"
 
 
 def _raise(result):
@@ -92,7 +114,8 @@ def no_cuda(monkeypatch):
     "Generator", "ContinuousBatcher", "LLMEngine", "ContinuousLLMEngine",
     "init_state", "make_train_step", "make_eval_step", "single_device_mesh",
     "PagedBatcher", "init_collective_group", "initialize_host", "restore_state",
-    "LLMEngine_params_path", "TorchTrainer", "start_gpu_profile",
+    "LLMEngine_params_path", "TorchTrainer", "start_gpu_profile", "build_llm_processor",
+    "iter_torch_batches",
 ])
 def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
     cfg = T.config("debug")
@@ -119,6 +142,9 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
             lambda: init_state(cfg, default_optimizer(cfg)),
             run_config=RunConfig(storage_path=str(tmp_path))).fit()),
         "start_gpu_profile": lambda: ray_tpu_torch.start_gpu_profile(str(tmp_path)),
+        "build_llm_processor": lambda: build_llm_processor(LLMConfig(model="debug")),
+        "iter_torch_batches": lambda: next(Dataset([{"id": torch.arange(2).numpy()}])
+                                           .iter_torch_batches(batch_size=1)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

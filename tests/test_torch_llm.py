@@ -239,3 +239,62 @@ def test_sampling_supports():
         one = _sample(logits[1:2], gen, 0.7, 3)
         assert int(one[0]) in top3
     assert torch.equal(_sample(logits, gen, 0.0, 0), logits.argmax(-1))
+
+
+class IdsTokenizer:
+    """ByteTokenizer's encode; decode writes the ids out, so a completion's
+    text carries its exact tokens (random weights rarely emit byte ids)."""
+
+    vocab_size = 257
+    eos_token_id = 256
+
+    def encode(self, text):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def test_llm_processor_matches_jax(tiny_paths):
+    """build_llm_processor over a Dataset of 3 blocks in local mode: the
+    port's generated column (its engine from the DCP params, on the CPU)
+    equals JAX's (from the orbax params), row for row; one engine a
+    config and device serves every batch."""
+    import ray_tpu
+    import ray_tpu.data
+    import ray_tpu.llm.batch as jax_batch
+    import ray_tpu_torch
+    import ray_tpu_torch.data
+    import ray_tpu_torch.llm.batch as port_batch
+    from ray_tpu.llm import build_llm_processor as jax_processor
+    from ray_tpu_torch.llm import build_llm_processor
+
+    jcfg, tcfg, _, orbax_dir, dcp_dir = tiny_paths
+    rows = [{"prompt": f"msg {i} " * (i + 1), "i": i} for i in range(6)]
+    sp = dict(max_tokens=8)
+
+    def run(rt, process):
+        rt.init(local_mode=True)
+        try:
+            ds = rt.data.from_items(rows, override_num_blocks=3)
+            return process(ds).take_all()
+        finally:
+            rt.shutdown()
+
+    ref = run(ray_tpu, jax_processor(
+        JLLMConfig(model=jcfg, max_len=64, params_path=orbax_dir, tokenizer=IdsTokenizer(),
+                   sampling=JSamplingParams(**sp)), batch_size=2))
+    config = LLMConfig(model=tcfg, max_len=64, params_path=dcp_dir, tokenizer=IdsTokenizer(),
+                       sampling=SamplingParams(**sp))
+    try:
+        got = run(ray_tpu_torch, build_llm_processor(config, batch_size=2, device="cpu"))
+        assert len(port_batch._ENGINE_CACHE) == 1
+        (eng,) = port_batch._ENGINE_CACHE.values()
+        assert port_batch._engine_for(config, "cpu") is eng
+        assert eng.device == torch.device("cpu")
+    finally:
+        port_batch._ENGINE_CACHE.clear()
+        jax_batch._ENGINE_CACHE.clear()
+    assert [r["generated"] for r in got] == [r["generated"] for r in ref]
+    assert [(r["prompt"], r["i"]) for r in got] == [(r["prompt"], r["i"]) for r in ref]
+    assert all(len(r["generated"].split()) == 8 for r in got)
