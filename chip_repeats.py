@@ -39,7 +39,12 @@ them and prints what each repeat saw, one JSON object a line:
   paged serving with its three profiles of one decode step) in a fresh
   process for each variant: alone; after cupti_record; after
   gpu_profile_trace; twice. Each run's failure is printed, not raised,
-  with what runtime_local's trace held.
+  with what runtime_local's trace held;
+- cluster_release_thread: µs a no-op actor call on a one-node cluster
+  (median of 300, six windows alternating D, I, I, D, D, I) with the
+  releases a reference count reaching zero starts run on the core
+  worker's release thread (D, the port's way) and run inline by the
+  driver (I, the JAX package's way off its event loop).
 
 It exits 0 when every repeat ran, whatever it saw; the last line sums up.
 """
@@ -339,6 +344,44 @@ def serving_variants(smi) -> dict:
     return row
 
 
+CALLS = 300  # cluster_release_thread's calls a window
+
+
+def cluster_release_thread(smi) -> dict:
+    import numpy as np
+
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=2)
+    try:
+        core = rt._private.worker.global_worker.core
+        deferred = core.free_object
+
+        @rt.remote
+        class Pinger:
+            def ping(self):
+                return None
+
+        a = Pinger.remote()
+        rt.get(a.ping.remote(), timeout=120)
+        row = {"deferred": [], "inline": [], "calls": CALLS, "card": smi}
+        for mode in "DIIDDI":
+            core.free_object = deferred if mode == "D" else core._free_object_sync
+            rt.get([a.ping.remote() for _ in range(50)], timeout=120)
+            ts = []
+            for _ in range(CALLS):
+                t0 = time.perf_counter()
+                rt.get(a.ping.remote(), timeout=60)
+                ts.append(time.perf_counter() - t0)
+            row["deferred" if mode == "D" else "inline"].append(1e6 * float(np.median(ts)))
+        core.free_object = deferred
+        rt.kill(a)
+    finally:
+        rt.shutdown()
+    C.emit({"cluster_release_thread": row})
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_repeats: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -367,7 +410,8 @@ def main() -> int:
     checks = {"paged_warm_timing": lambda: paged_warm_timing(smi),
               "cupti_record": cupti_record, "gpu_profile_trace": gpu_profile_trace,
               "gpu_profile_cycles": gpu_profile_cycles, "trace_after_work": trace_after_work,
-              "serving_variants": lambda: serving_variants(smi)}
+              "serving_variants": lambda: serving_variants(smi),
+              "cluster_release_thread": lambda: cluster_release_thread(smi)}
     chosen = sys.argv[1:] or list(checks)
     summary = {"card": smi, **{name: checks[name]() for name in chosen}}
     print(json.dumps(summary), flush=True)

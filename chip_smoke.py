@@ -23,6 +23,19 @@ before it and read just after:
   through ray_tpu_torch.gpu_profile), a rejected request surfacing as
   the engine's exception; µs per actor call and per put/get of a 64 MB
   CUDA tensor;
+- the actor runtime in cluster mode: ray_tpu_torch.init() starting a
+  GCS, a raylet, the shared-memory object store and worker processes;
+  llama3_8b built from the serving LLMConfig (the same seed-0 weights)
+  in a num_gpus=1 actor's own process, its fresh worker holding CUDA
+  uninitialized with CUDA_VISIBLE_DEVICES naming its lease: the 4
+  prompts (tokens bit-identical to the serving phase's, 32 forward
+  launches counted in the worker) and the 8 as concurrent calls (texts
+  equal, wall against the direct round's); a num_gpus=1 task running the
+  forward and backward flash kernels on q, k, v, dO put from the card
+  by the driver (through the host), held against the plain versions and
+  bit-equal to the driver's own calls, 1 / 1 / 1 launches; µs per actor
+  call, ms per 64 MB CUDA put and its get in a worker; after shutdown
+  the card's memory back within 1 GiB and no process of the cluster left;
 - paged serving: the same model and prompts through
   ray_tpu_torch.models.paged_kv.PagedBatcher (tokens held equal to the
   slot-dense batcher's), 8 requests over a shared 1,024-token prefix
@@ -521,6 +534,8 @@ def runtime_local(cfg, config, params, ids4, prompts8, direct, smi) -> dict:
               "texts_equal_first_round": direct_texts == direct["texts"]})
         if direct_texts != direct["texts"]:
             raise AssertionError("the direct engine's second round gave other texts")
+        # runtime_cluster's yardstick too
+        direct.update(round_s=direct_s, tokens_out=direct_tokens_out)
 
     reset_launches(A)
     with phase("runtime_local"):
@@ -674,13 +689,287 @@ def runtime_local(cfg, config, params, ids4, prompts8, direct, smi) -> dict:
     return launches
 
 
+CLUSTER_CALLS = 300  # no-op actor calls timed in runtime_cluster (median)
+CLUSTER_PUTS = 5  # 64 MB CUDA tensors put by the driver and got in a worker
+CLUSTER_LEFT_BYTES = 2 ** 30  # card memory in use after shutdown beyond before
+
+
+class ClusterLlama:
+    """runtime_cluster's actor, in a worker process of the cluster: the
+    serving cell's LLMEngine (its params drawn on the leased card from the
+    LLMConfig's seed) and a ContinuousLLMEngine over the same params, with
+    that process's own launch counters. Its first lines record what the
+    fresh worker looked like before any card call."""
+
+    def __init__(self, config):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.llm import ContinuousLLMEngine, LLMEngine
+
+        self.facts = {"cuda_initialized": torch.cuda.is_initialized(),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      "gpu_ids": rt.get_runtime_context().get_assigned_resources()["gpu_ids"],
+                      "pid": os.getpid()}
+        t0 = time.perf_counter()
+        self.engine = LLMEngine(config)
+        self.cengine = ContinuousLLMEngine(config, params=self.engine.generator.params)
+        torch.cuda.synchronize()
+        self.facts["build_s"] = time.perf_counter() - t0
+
+    def worker_facts(self):
+        return self.facts
+
+    def reset_launches(self):
+        from ray_tpu_torch.ops import attention as A
+
+        reset_launches(A)
+
+    def launches(self):
+        from ray_tpu_torch.ops import attention as A
+
+        return read_launches(A)
+
+    def generate_tokens(self, ids):
+        return self.engine.generate_tokens(ids)
+
+    def submit(self, prompt):
+        return self.cengine.submit(prompt).result(timeout=600)
+
+    def stats(self):
+        return dict(self.cengine.batcher.stats)
+
+    def ping(self):
+        return None
+
+    def close(self):
+        self.cengine.shutdown()
+
+
+def cluster_flash_task(q, k, v, do):
+    """runtime_cluster's num_gpus=1 task: q, k, v and dO arrive from the
+    store as host tensors; one forward and one backward flash call on the
+    leased card, counted from 0 in this process. Returns the fresh worker's
+    facts (read before any card call), O, LSE, dQ, dK, dV and the counts."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import attention as A
+
+    facts = {"cuda_initialized": torch.cuda.is_initialized(),
+             "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+             "gpu_ids": rt.get_runtime_context().get_assigned_resources()["gpu_ids"],
+             "arrived_on": [str(t.device) for t in (q, k, v, do)]}
+    q, k, v, do = (t.cuda() for t in (q, k, v, do))
+    reset_launches(A)
+    o, lse = A.flash_attention_fwd(q, k, v, True)
+    dq, dk, dv = A.flash_attention_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    return facts, (o, lse, dq, dk, dv), read_launches(A)
+
+
+def cluster_fetch_task(boxed):
+    """runtime_cluster's put/get probe: get a tensor the driver put (the
+    ref comes boxed, so the worker gets it itself) and move it to the card;
+    ms of each step on the worker's clock."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    x = rt.get(boxed[0])
+    t1 = time.perf_counter()
+    y = x.cuda()
+    torch.cuda.synchronize()
+    return {"get_ms": 1e3 * (t1 - t0), "to_card_ms": 1e3 * (time.perf_counter() - t1),
+            "nbytes": y.numel() * y.element_size(), "dtype": str(y.dtype)}
+
+
+def cluster_processes() -> str:
+    """The processes of a ray_tpu_torch cluster still alive (pgrep -af)."""
+    return subprocess.run(["pgrep", "-af", "ray_tpu_torch._private"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def runtime_cluster(record, smi) -> dict:
+    """The actor runtime in cluster mode on one node: ray_tpu_torch.init()
+    starts a GCS, a raylet, the shared-memory store and worker processes.
+    llama3_8b is served from a num_gpus=1 actor in a worker process of its
+    own (the same LLMConfig as the serving phase, so the same seed-0
+    weights), held to ``record`` (serving_phases' tokens and texts); then
+    a num_gpus=1 task runs the forward and backward flash kernels on
+    inputs the driver put from the card, held against the plain versions
+    and the driver's own calls. The path's launches are the workers' (the
+    actor's and the task's counters, from 0); the driver launches none
+    until they are read. Every process of the cluster is gone on return."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    cfg = T.config(record["config"].model)
+    reset_launches(A)
+    with phase("runtime_cluster"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        used_before = total - free
+        t0 = time.perf_counter()
+        rt.init(num_cpus=4)
+        try:
+            init_s = time.perf_counter() - t0
+            first = rt.get(rt.remote(lambda: os.getpid()).remote(), timeout=300)
+            first_s = time.perf_counter() - t0
+            res = rt.cluster_resources()
+            emit({"cluster_resources": res, "init_s": init_s, "first_task_s": first_s,
+                  "first_task_pid": first, "driver_pid": os.getpid(), "card": smi})
+            if res.get("GPU") != torch.cuda.device_count():
+                raise AssertionError(f"the cluster advertises {res}, "
+                                     f"{torch.cuda.device_count()} cards")
+
+            # ---- llama3_8b from an actor in its own process -------------
+            served = rt.remote(num_gpus=1, max_concurrency=8)(ClusterLlama).remote(
+                record["config"])
+            facts = rt.get(served.worker_facts.remote(), timeout=900)
+            emit({"actor_worker": facts})
+            if facts["cuda_initialized"] or facts["visible"] != "0" or \
+                    facts["gpu_ids"] != [0] or facts["pid"] == os.getpid():
+                raise AssertionError(f"the actor's worker was not fresh on card 0: {facts}")
+            rt.get(served.reset_launches.remote(), timeout=60)
+            tokens = rt.get(served.generate_tokens.remote(record["ids4"]), timeout=600)
+            gen_launches = rt.get(served.launches.remote(), timeout=60)
+            emit({"actor_tokens_equal_serving": tokens == record["tokens"],
+                  "worker_launches": gen_launches})
+            if tokens != record["tokens"] or gen_launches != {
+                    "flash_fwd": cfg.layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+                raise AssertionError(f"actor generate_tokens: {gen_launches}, tokens equal "
+                                     f"{tokens == record['tokens']}")
+            # the 8 requests twice: the first round is the actor's engine's
+            # first (cold in its process), the second is warm, as the
+            # direct round was; both are counted
+            rt.get(served.reset_launches.remote(), timeout=60)
+            rounds, before = [], {"finished": 0, "tokens_out": 0, "admitted": 0}
+            for _ in range(2):
+                t1 = time.perf_counter()
+                texts = rt.get([served.submit.remote(p) for p in record["prompts8"]],
+                               timeout=900)
+                actor_s = time.perf_counter() - t1
+                stats = rt.get(served.stats.remote(), timeout=60)
+                got = {k: stats[k] - before[k] for k in before}
+                before = {k: stats[k] for k in before}
+                rounds.append(actor_s)
+                emit({"actor_continuous_s": actor_s, "direct_round_s": record["round_s"],
+                      "actor_over_direct": actor_s / record["round_s"], "round": got,
+                      "texts_equal_serving": texts == record["texts"]})
+                if texts != record["texts"] or got["finished"] != len(record["prompts8"]) \
+                        or got["tokens_out"] != record["tokens_out"]:
+                    raise AssertionError(f"actor continuous engine: {got}, texts equal "
+                                         f"{texts == record['texts']}")
+            sub_launches = rt.get(served.launches.remote(), timeout=60)
+            emit({"worker_launches": sub_launches, "admitted": stats["admitted"],
+                  "rounds_s": rounds})
+            if sub_launches != {"flash_fwd": cfg.layers * stats["admitted"],
+                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+                raise AssertionError(f"the actor's 8 requests x 2 launched {sub_launches}, "
+                                     f"admitted {stats['admitted']}")
+            call_us = median_host_us(lambda: rt.get(served.ping.remote()), CLUSTER_CALLS)
+            emit({"cluster_actor_call_us": call_us, "calls": CLUSTER_CALLS,
+                  "clock": "host, median", "card": smi})
+            rt.get(served.close.remote(), timeout=60)
+            rt.kill(served)
+
+            # ---- the flash kernels in a task, inputs through the host ----
+            sname, b, sq, sk, h, hkv, d, causal, dtype = next(
+                s_ for s_ in BWD_SHAPES if s_[0] == "llama3_8b")
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            do = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+            refs = [rt.put(t) for t in (q, k, v, do)]
+            task = rt.remote(num_gpus=1)(cluster_flash_task)
+            tfacts, outs, task_launches = rt.get(task.remote(*refs), timeout=600)
+            emit({"task_worker": tfacts, "worker_launches": task_launches,
+                  "returned_on": [str(t.device) for t in outs]})
+            if tfacts["cuda_initialized"] or tfacts["visible"] != "0" or \
+                    tfacts["gpu_ids"] != [0] or set(tfacts["arrived_on"]) != {"cpu"} or \
+                    task_launches != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+                raise AssertionError(f"the flash task: {tfacts}, {task_launches}")
+            launches = {name: gen_launches[name] + sub_launches[name] + task_launches[name]
+                        for name in COUNTERS}
+            driver = read_launches(A)
+            if driver != {name: 0 for name in COUNTERS}:
+                raise AssertionError(f"the driver launched {driver} during the path")
+            # the path's counts are read; what follows compares, uncounted
+            outs = [t.cuda() for t in outs]
+            o, lse = A.flash_attention_fwd(q, k, v, causal)
+            mine = [o, lse, *A.flash_attention_bwd(q, k, v, o, lse, do, causal)]
+            o_ref, lse_ref = A._flash_fwd_reference(q, k, v, causal)
+            plain = A._flash_bwd_reference(q, k, v, o, lse, do, causal)
+            plain32 = A._flash_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                                             lse, do.float(), causal)
+            gaps = [max_abs(x, y) for x, y in zip(plain, plain32)]
+            tol_o, tol_lse = TOL[dtype]
+            tols = [tol_o, tol_lse] + [2 * g + FP32_BWD_TOL for g in gaps]
+            errs = [max_abs(outs[0], o_ref), max_abs(outs[1], lse_ref)] + \
+                [max_abs(x, y) for x, y in zip(outs[2:], plain)]
+            equal = [bool(torch.equal(x, y)) for x, y in zip(outs, mine)]
+            names = ("o", "lse", "dq", "dk", "dv")
+            row = {"shape": sname, "b": b, "sq": sq, "h": h, "hkv": hkv, "d": d,
+                   "causal": causal, "dtype": str(dtype),
+                   "max_abs_err": dict(zip(names, errs)), "tol": dict(zip(names, tols)),
+                   "bit_equal_to_driver": dict(zip(names, equal))}
+            emit(row)
+            if not all(e <= t for e, t in zip(errs, tols)) or not all(equal):
+                raise AssertionError(f"the task's flash outputs: {row}")
+            del outs, mine, o, lse, o_ref, lse_ref, plain, plain32
+
+            # ---- a 64 MB CUDA tensor put by the driver, got in a worker ----
+            x = torch.randn(RUNTIME_PUT_BYTES // 2, generator=gen, device="cuda").bfloat16()
+            fetch = rt.remote(num_gpus=1)(cluster_fetch_task)
+            put_ms, fetched, host_put_ms = [], [], []
+            x_host = x.cpu()
+            for _ in range(CLUSTER_PUTS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ref = rt.put(x)
+                put_ms.append(1e3 * (time.perf_counter() - t1))
+                fetched.append(rt.get(fetch.remote([ref]), timeout=300))
+                t1 = time.perf_counter()
+                host_ref = rt.put(x_host)  # the same bytes from the host: no copy off the card
+                host_put_ms.append(1e3 * (time.perf_counter() - t1))
+                del ref, host_ref
+            emit({"cluster_put_ms": put_ms, "host_tensor_put_ms": host_put_ms,
+                  "host_put_ms_median": float(np.median(host_put_ms)),
+                  "worker_get_ms": [f["get_ms"] for f in fetched],
+                  "worker_to_card_ms": [f["to_card_ms"] for f in fetched],
+                  "put_ms_median": float(np.median(put_ms)),
+                  "get_ms_median": float(np.median([f["get_ms"] for f in fetched])),
+                  "to_card_ms_median": float(np.median([f["to_card_ms"] for f in fetched])),
+                  "bytes": fetched[0]["nbytes"], "clock": "host", "card": smi})
+            del x, x_host, refs, q, k, v, do
+        finally:
+            rt.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + 30
+        while True:  # a killed worker's memory returns to the card a moment later
+            free, total = torch.cuda.mem_get_info()
+            left = (total - free) - used_before
+            if left <= CLUSTER_LEFT_BYTES or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        alive = cluster_processes()
+        emit({"card_used_before": used_before, "card_used_after": total - free,
+              "left_bytes": left, "pgrep": alive})
+        if left > CLUSTER_LEFT_BYTES or alive:
+            raise AssertionError(f"after shutdown: {left} bytes more in use on the card, "
+                                 f"processes left: {alive!r}")
+    return launches
+
+
 def serving_phases(kernels, smi) -> tuple:
     """The serving path: serve llama3_8b at full width through LLMEngine and
     ContinuousLLMEngine (launches counted from 0 around it), then through
     the actor runtime in local mode (runtime_local) and paged KV, then time
     prefill and decode and hold the kernel prefill against the plain
-    formulation. Returns the serving, paged and runtime paths' launches;
-    everything it allocates is freed on return."""
+    formulation. Returns the serving, paged and runtime paths' launches and
+    the record runtime_cluster holds its actor to (the LLMConfig, the
+    prompts, the direct engines' tokens and texts, the direct round's
+    wall); everything it allocates is freed on return."""
     from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models import transformer as T
     from ray_tpu_torch.models.decoding import forward_cached, init_cache
@@ -764,9 +1053,11 @@ def serving_phases(kernels, smi) -> tuple:
             if streamed != ref:
                 raise AssertionError(f"generate_stream {streamed} != generate {ref}")
 
-        runtime = runtime_local(
-            cfg, config, params, ids4, prompts8,
-            {"cengine": cengine, "tokens": outs, "texts": ctexts, "stream": streamed}, smi)
+        direct = {"cengine": cengine, "tokens": outs, "texts": ctexts, "stream": streamed}
+        runtime = runtime_local(cfg, config, params, ids4, prompts8, direct, smi)
+        # what runtime_cluster holds its actor to, once this engine is gone
+        record = {"config": config, "ids4": ids4, "prompts8": prompts8,
+                  **{k: direct[k] for k in ("tokens", "texts", "round_s", "tokens_out")}}
 
         paged = paged_phases(cfg, params, [tok.encode(p) for p in prompts8], batcher, greedy)
 
@@ -826,7 +1117,7 @@ def serving_phases(kernels, smi) -> tuple:
     finally:
         if batcher is not None:
             batcher.shutdown()
-    return launches, paged, runtime
+    return launches, paged, runtime, record
 
 
 def torch_calls(fn) -> list:
@@ -3142,10 +3433,11 @@ def main() -> int:
             del q, k, v, o, lse, o_ref, lse_ref
             torch.cuda.empty_cache()
 
-    serving, paged, runtime = serving_phases(kernels, smi)
+    serving, paged, runtime, record = serving_phases(kernels, smi)
     gc.collect()
     torch.cuda.empty_cache()
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
+    cluster = runtime_cluster(record, smi)
     data_batch = data_llm_batch(smi)
 
     flash_bwd_vs_plain(kernels, smi)
@@ -3171,6 +3463,7 @@ def main() -> int:
     for name, row in kernels.items():
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "runtime_local": runtime[name],
+                                   "runtime_cluster": cluster[name],
                                    "paged_serving": paged[name],
                                    "data_llm_batch": data_batch[name],
                                    "train_step": train[name],

@@ -22,26 +22,32 @@ schedulers).
 
 The runtime's public API is ``ray_tpu``'s (reference:
 python/ray/__init__.py): ``init, shutdown, remote, get, put, wait, kill,
-cancel, get_actor``, in local mode so far (``init(local_mode=True)``:
-tasks on a thread pool, actors on their own executors, objects in the
-in-process store, the cards advertised as the "GPU" resource). The
-runtime picks no device: what a task or actor runs keeps ``device=None``
-→ the card.
+cancel, get_actor``, and ``observability``. ``init()`` starts a one-node
+cluster (a GCS, a raylet, a shared-memory object store and worker
+processes; the raylet leases the cards, "GPU", as instances and pins a
+lease's cards through ``CUDA_VISIBLE_DEVICES``); ``init(local_mode=True)``
+runs tasks on a thread pool, actors on their own executors and objects in
+the in-process store. A CUDA tensor crosses processes through the host.
+The runtime picks no device: what a task or actor runs keeps
+``device=None`` → the card (the leased one in a worker).
 """
 
 from __future__ import annotations
 
 import inspect
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def default_device(device=None) -> torch.device:
+def default_device(device=None) -> "torch.device":
     """``device`` as a torch.device; ``None`` means "cuda", and raises
     RuntimeError when no CUDA device is present (never falls back to
     the CPU)."""
+    # imported here, not above: the cluster's GCS and raylet processes
+    # import this package and never touch torch (its import costs them
+    # seconds of start-up)
+    import torch
+
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
@@ -89,6 +95,7 @@ from ray_tpu_torch.actor import ActorClass, ActorHandle, method  # noqa: E402
 from ray_tpu_torch.remote_function import RemoteFunction  # noqa: E402
 from ray_tpu_torch.runtime_context import get_runtime_context  # noqa: E402
 from ray_tpu_torch import exceptions  # noqa: E402,F401
+from ray_tpu_torch import observability  # noqa: E402,F401 — event bus + tracing
 
 _ALLOWED_TASK_OPTIONS = {
     "num_returns",
@@ -152,6 +159,7 @@ __all__ = [
     "__version__",
     "default_device",
     "init",
+    "observability",
     "timeline",
     "gpu_profile",
     "start_gpu_profile",

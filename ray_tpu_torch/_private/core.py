@@ -2,14 +2,15 @@
 ray_tpu/_private/core.py).
 
 The public API (``ray_tpu_torch.get/put/remote/...``) talks only to this
-interface. The port has one backend so far:
+interface. Two backends exist:
 
 - ``LocalModeRuntime`` (ray_tpu_torch/_private/local_mode.py): in-process,
   for ``init(local_mode=True)`` and unit tests — reference analogue:
   python/ray/_private/worker.py LOCAL_MODE.
-
-The multi-process ``ClusterRuntime`` (ray_tpu/_private/cluster_runtime.py
-in the JAX package) comes with ROADMAP.md Queue A item 10b.
+- ``ClusterRuntime`` (ray_tpu_torch/_private/cluster_runtime.py): the real
+  multi-process runtime (GCS + raylet + shared-memory object store +
+  worker processes) — reference analogue: the Cython CoreWorker
+  (python/ray/_raylet.pyx:2851) over src/ray/core_worker/.
 """
 
 from __future__ import annotations

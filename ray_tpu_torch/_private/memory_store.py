@@ -14,6 +14,7 @@ import concurrent.futures
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional
 
+from ray_tpu_torch._private import debug_locks
 from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch.exceptions import GetTimeoutError
 
@@ -28,7 +29,12 @@ class _Entry:
 
 class MemoryStore:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        # reentrant: a garbage collection can run inside any of these
+        # sections (an allocation, an ID's hash) and finalize an ObjectRef
+        # whose release deletes from this store on the same thread. A
+        # plain Lock deadlocked there (ROADMAP.md Queue C, the cluster hang)
+        self._lock = debug_locks.maybe_wrap(
+            threading.RLock(), "memory_store.MemoryStore._lock")
         self._objects: Dict[ObjectID, _Entry] = {}
         self._waiters: Dict[ObjectID, List[Future]] = {}
 

@@ -6,23 +6,65 @@ The port's counterpart of ray_tpu/_private/profiling.py: ``start_gpu_profile``,
 (jax.profiler there; reference: the runtime-env GPU profiler plugins,
 python/ray/_private/runtime_env/nsight.py). A trace is written to
 ``logdir`` as a Chrome trace (open in chrome://tracing or Perfetto).
-``timeline()`` reads the task events of the state API, which come with the
-cluster runtime.
+``timeline()`` (a copy of JAX's) reads the task events of the state API
+from the cluster's GCS.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch import default_device
-from ray_tpu_torch._private.worker import waits_for_cluster_mode
 
 
 def timeline(filename: Optional[str] = None) -> Optional[List[Dict[str, Any]]]:
-    """Chrome-trace events of task execution (reference: ray.timeline)."""
-    raise waits_for_cluster_mode("timeline(), which reads the state API's task events,")
+    """Chrome-trace events of task execution (open in chrome://tracing
+    or Perfetto). Spans: queued (SUBMITTED→RUNNING) and execution
+    (RUNNING→FINISHED/FAILED); tasks missing a RUNNING event fall back
+    to one SUBMITTED→end span.
+
+    Reference surface: ray.timeline(_private/profiling.py).
+    """
+    from ray_tpu_torch.util.state import list_tasks
+
+    by_task: Dict[str, Dict[str, dict]] = {}
+    for ev in list_tasks(limit=20000):
+        by_task.setdefault(ev["task_id"], {})[ev["state"]] = ev
+    events: List[Dict[str, Any]] = []
+    for tid, states in by_task.items():
+        sub = states.get("SUBMITTED")
+        run = states.get("RUNNING")
+        end = states.get("FINISHED") or states.get("FAILED")
+        name = (end or run or sub or {}).get("name", "?")
+        failed = "FAILED" in states
+        if sub and run:
+            events.append({
+                "name": f"queued:{name}", "cat": "queue", "ph": "X",
+                "ts": sub["ts"] * 1e6,
+                "dur": max(0.0, (run["ts"] - sub["ts"]) * 1e6),
+                "pid": sub.get("job_id", "job"),
+                "tid": run.get("worker", "worker"),
+                "args": {"task_id": tid},
+            })
+        start = run or sub
+        if start and end:
+            events.append({
+                "name": name, "cat": "task", "ph": "X",
+                "ts": start["ts"] * 1e6,
+                "dur": max(0.0, (end["ts"] - start["ts"]) * 1e6),
+                "pid": start.get("job_id", "job"),
+                "tid": (run or end).get("worker", "worker"),
+                "args": {"task_id": tid, "state": end["state"],
+                         "failed": failed},
+            })
+    if filename:
+        with open(filename, "w") as f:
+            json.dump(events, f)
+        return None
+    return events
 
 
 # (profiler, logdir) of the trace in flight

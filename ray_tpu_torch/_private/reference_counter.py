@@ -7,9 +7,9 @@ per ObjectID: local refcount (live ObjectRef pythons), submitted-task count
 object (the worker that created it) additionally tracks borrowers and frees
 the object from the store when the global count reaches zero.
 
-Scope: correct local counting + owner-side free callbacks + borrower
-registration via hooks a cluster runtime installs. Lineage pinning hooks
-are present (``set_lineage_pinned``) for reconstruction.
+Round-1 scope: correct local counting + owner-side free callbacks +
+borrower registration via RPC hooks the cluster runtime installs. Lineage
+pinning hooks are present (``set_lineage_pinned``) for reconstruction.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Set, Tuple
 
+from ray_tpu_torch._private import debug_locks
 
 from ray_tpu_torch._private.ids import ObjectID
 
@@ -31,7 +32,7 @@ class _Ref:
     # once its total interest — deserialized claims + unclaimed handoffs —
     # hits zero; the owner ignores a Remove older than the stored epoch, so
     # a stale Remove racing a concurrent re-borrow cannot wipe a live
-    # registration.
+    # registration (round-2 review finding).
     borrowers: Dict[Tuple[str, int], int] = field(default_factory=dict)
     borrow_epoch: int = 0
     owned: bool = False
@@ -41,7 +42,8 @@ class _Ref:
 
 class ReferenceCounter:
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = debug_locks.maybe_wrap(
+            threading.RLock(), "reference_counter.ReferenceCounter._lock")
         self._refs: Dict[ObjectID, _Ref] = {}
         # called when an *owned* object's global count hits zero
         self._on_zero: Optional[Callable[[ObjectID], None]] = None

@@ -3,11 +3,11 @@ ray_tpu/_private/streaming.py).
 
 Reference: streaming-generator returns in src/ray/core_worker/
 task_manager.cc:778 (HandleReportGeneratorItemReturns) and
-python/ray/_raylet.pyx ObjectRefGenerator. The caller-side
-``ObjectRefGenerator`` hands out ObjectRefs in yield order as they
-arrive. In local mode, the port's only mode so far, the executing thread
-puts each yield in the in-process store; the cluster runtime's
-per-yield RPCs come with it (ROADMAP.md Queue A item 10b).
+python/ray/_raylet.pyx ObjectRefGenerator — re-designed for the pickle-RPC
+runtime: the executing worker pushes one ``StreamingYield`` RPC per yielded
+value to the caller (inline payload or a plasma location), then
+``StreamingDone``; the caller-side ``ObjectRefGenerator`` hands out
+ObjectRefs in yield order as they arrive.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch.exceptions import GetTimeoutError
 
 if TYPE_CHECKING:  # pragma: no cover
-    from ray_tpu_torch._private.core import CoreRuntime
+    from ray_tpu_torch._private.core_worker import CoreWorker
 
 
 class StreamEnd(Exception):
@@ -63,7 +63,7 @@ class ObjectRefGenerator:
     an ObjectRef as soon as that yield has been produced — the task may
     still be running."""
 
-    def __init__(self, core: "CoreRuntime", task_id: TaskID, state: _StreamState):
+    def __init__(self, core: "CoreWorker", task_id: TaskID, state: _StreamState):
         self._core = core
         self._task_id = task_id
         self._state = state

@@ -11,8 +11,6 @@ RPC layer.
 from __future__ import annotations
 
 import enum
-import hashlib
-import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -139,10 +137,6 @@ class TaskSpec:
     def runtime_env_hash(self) -> str:
         if not self.runtime_env:
             return ""
+        from ray_tpu_torch._private.runtime_env import env_hash
+
         return env_hash(self.runtime_env)
-
-
-def env_hash(env: Dict[str, Any]) -> str:
-    """Copy of ray_tpu/_private/runtime_env.py::env_hash."""
-    return hashlib.sha256(
-        json.dumps(env, sort_keys=True, default=str).encode()).hexdigest()

@@ -1,5 +1,5 @@
 """The per-process Worker singleton and the init/shutdown/get/put/wait API
-(copy of ray_tpu/_private/worker.py, local mode only so far).
+(copy of ray_tpu/_private/worker.py: local mode and a one-node cluster).
 
 Reference: python/ray/_private/worker.py (Worker :442, init :1438,
 connect :2026, shutdown :2069, get/put/wait :2841+). The Worker binds the
@@ -14,22 +14,28 @@ import logging
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
 
+from ray_tpu_torch._private.config import config
 from ray_tpu_torch._private.ids import ActorID, JobID, TaskID, WorkerID
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.reference_counter import ReferenceCounter
 
 logger = logging.getLogger(__name__)
 
-# the row of ROADMAP.md that every mode past local mode waits for
-ITEM_10B = "ROADMAP.md Queue A item 10b, 'the actor runtime in cluster mode'"
+# the rows of ROADMAP.md that the modes the port does not run wait for
+ITEM_9_CHANNELS = "ROADMAP.md Queue A item 9, 'experimental/channel.py'"
+ITEM_10B_II = ("ROADMAP.md Queue A item 10b-ii, 'multi-node joins, fault "
+               "paths and the fastpath C codec'")
+ITEM_12_CLIENT = "ROADMAP.md Queue A item 12, 'util/client'"
+ITEM_12_DASHBOARD = "ROADMAP.md Queue A item 12, 'the dashboard'"
 
 
-def waits_for_cluster_mode(what: str) -> NotImplementedError:
-    """The error of a mode the port's local-mode runtime does not run."""
-    return NotImplementedError(
-        f"{what} waits for {ITEM_10B}; ray_tpu_torch runs init(local_mode=True) "
-        f"only so far")
+def waits_for(what: str, row: str) -> NotImplementedError:
+    """The error of a mode the port does not run yet, naming its row."""
+    return NotImplementedError(f"{what} waits for {row}")
 
+
+SCRIPT_MODE = "SCRIPT_MODE"
+WORKER_MODE = "WORKER_MODE"
 LOCAL_MODE = "LOCAL_MODE"
 
 
@@ -71,6 +77,12 @@ class Worker:
 
 global_worker: Optional[Worker] = None
 _init_lock = threading.Lock()
+# set while no teardown is in flight: shutdown() clears it before the
+# slow lock-free teardown and sets it when done, so a concurrent init()
+# waits for the old runtime's client-cache sweep instead of having its
+# fresh RPC clients closed out from under it
+_teardown_done = threading.Event()
+_teardown_done.set()
 
 
 def _require_connected() -> Worker:
@@ -86,42 +98,78 @@ def init(
     num_gpus: Optional[float] = None,
     resources: Optional[Dict[str, float]] = None,
     local_mode: bool = False,
+    object_store_memory: Optional[int] = None,
+    dashboard: bool = False,
+    namespace: Optional[str] = None,
     runtime_env: Optional[Dict[str, Any]] = None,
+    _system_config: Optional[Dict[str, Any]] = None,
     ignore_reinit_error: bool = False,
+    log_to_driver: bool = True,
 ) -> Dict[str, Any]:
-    """Start a ray_tpu_torch runtime.
+    """Start (or connect to) a ray_tpu_torch runtime.
 
     - ``local_mode=True``: in-process threads (tasks on a thread pool,
       actors on their own executors, objects in the in-process store).
-      ``num_gpus`` sets the "GPU" resource; by default it is the count
-      of visible cards.
-    - ``address=None`` (a new single-node cluster), ``address="<host:port>"``
-      or ``"auto"`` (connect to one) and ``"ray://..."`` (a remote driver)
-      raise NotImplementedError: they wait for the cluster runtime, and so
-      do JAX's keywords that only it reads (``object_store_memory``,
-      ``dashboard``, ``namespace``, ``log_to_driver``, ``_system_config``).
+    - ``address=None``: start a new single-node cluster (GCS + raylet +
+      shared-memory object store + worker processes, as child processes)
+      and connect as driver. The raylet leases the cards ("GPU") as
+      instances: a ``num_gpus=n`` task or actor runs in a worker whose
+      ``CUDA_VISIBLE_DEVICES`` lists its n cards.
+    - ``address="<host:port>"``: connect as driver to the GCS of a
+      running cluster (one started by another driver's ``init()``).
+
+    ``num_gpus`` sets the "GPU" resource; by default it is the count of
+    visible cards. ``address="auto"`` (discovering a cluster that the CLI
+    started), ``ray://`` (a remote driver) and ``dashboard=True`` raise
+    NotImplementedError naming the ROADMAP.md row they wait for.
     """
     global global_worker
-    if not local_mode:
-        if address and str(address).startswith("ray://"):
-            raise waits_for_cluster_mode(f"init(address={address!r}), a remote driver,")
-        if address:
-            raise waits_for_cluster_mode(f"init(address={address!r}), joining a cluster,")
-        raise waits_for_cluster_mode("init() without local_mode=True, a new cluster,")
+    if address == "auto":
+        raise waits_for("init(address='auto'), discovering a cluster that "
+                        "'ray_tpu start' left running,", ITEM_10B_II)
+    if address and str(address).startswith("ray://"):
+        raise waits_for(f"init(address={address!r}), a remote driver,", ITEM_12_CLIENT)
+    if dashboard:
+        raise waits_for("init(dashboard=True)", ITEM_12_DASHBOARD)
     with _init_lock:
+        # serialize against an in-flight shutdown() teardown (which runs
+        # outside _init_lock); waiting under the lock is deadlock-free
+        # (the event's setter never takes the lock) and bounded
+        if not _teardown_done.wait(timeout=60):
+            logger.warning(
+                "previous runtime teardown still in flight after 60s; "
+                "proceeding with init")
         if global_worker is not None and global_worker.connected:
             if ignore_reinit_error:
                 return {"already_initialized": True}
             raise RuntimeError(
                 "ray_tpu_torch.init() called twice; use ignore_reinit_error=True")
 
+        config.initialize(_system_config)
         w = Worker()
-        w.mode = LOCAL_MODE
-        from ray_tpu_torch._private.local_mode import LocalModeRuntime
+        w.mode = LOCAL_MODE if local_mode else SCRIPT_MODE
 
-        w.core = LocalModeRuntime(resources=resources, num_cpus=num_cpus or 8,
-                                  num_gpus=num_gpus)
-        if runtime_env:
+        if local_mode:
+            from ray_tpu_torch._private.local_mode import LocalModeRuntime
+
+            w.core = LocalModeRuntime(resources=resources, num_cpus=num_cpus or 8,
+                                      num_gpus=num_gpus)
+        else:
+            from ray_tpu_torch._private.cluster_runtime import ClusterRuntime
+
+            w.core = ClusterRuntime.create(
+                address=address,
+                num_cpus=num_cpus,
+                num_gpus=num_gpus,
+                resources=resources,
+                object_store_memory=object_store_memory,
+                namespace=namespace,
+                dashboard=dashboard,
+            )
+            w.job_id = w.core.job_id
+            # job-level runtime env: merged under every task/actor env
+            w.core.job_runtime_env = runtime_env or {}
+        if local_mode and runtime_env:
             # in-process execution: env_vars apply directly; packaged
             # fields are meaningless without worker processes
             import os as _os
@@ -129,6 +177,8 @@ def init(
             for k, v in (runtime_env.get("env_vars") or {}).items():
                 _os.environ[str(k)] = str(v)
         w.reference_counter.set_on_zero_callback(w.core.free_object)
+        if hasattr(w.core, "_on_borrow_released"):
+            w.reference_counter.set_borrow_release_callback(w.core._on_borrow_released)
         global_worker = w
         atexit.register(_atexit_shutdown)
         return {
@@ -146,16 +196,29 @@ def _atexit_shutdown() -> None:
 
 def shutdown() -> None:
     global global_worker
-    # detach under the lock, tear down outside it
+    # detach inside the lock, tear down outside it: core.shutdown()
+    # closes RPC clients and waits on them, and holding _init_lock
+    # across that would wedge any thread entering init/shutdown; a
+    # concurrent init() waits on the _teardown_done event instead
     with _init_lock:
-        w, global_worker = global_worker, None
+        w = global_worker
+        if w is not None:
+            global_worker = None
+            _teardown_done.clear()
     if w is None:
+        # a concurrent shutdown() may still be mid-teardown: return only
+        # once it is done (atexit relies on it)
+        _teardown_done.wait(timeout=60)
         return
-    w.reference_counter.freeze()
     try:
-        w.core.shutdown()
-    except Exception:
-        logger.exception("Error during shutdown")
+        if w.core is not None:
+            w.reference_counter.freeze()
+            try:
+                w.core.shutdown()
+            except Exception:
+                logger.exception("Error during shutdown")
+    finally:
+        _teardown_done.set()
 
 
 def is_initialized() -> bool:

@@ -4,14 +4,14 @@ Reference: python/ray/dag/ (DAGNode, FunctionNode, ClassNode, InputNode).
 ``f.bind(x).execute()`` submits the underlying tasks with dependencies
 expressed as ObjectRefs. ``.experimental_compile()`` raises: a compiled
 graph runs over channels between actor processes
-(ray_tpu/dag_compiled.py), which wait for the cluster runtime.
+(ray_tpu/dag_compiled.py), which wait for item 9's channels.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-from ray_tpu_torch._private.worker import waits_for_cluster_mode
+from ray_tpu_torch._private.worker import ITEM_9_CHANNELS, waits_for
 
 
 class DAGNode:
@@ -49,7 +49,8 @@ class DAGNode:
                 v._clear_cache()
 
     def experimental_compile(self, **kwargs):
-        raise waits_for_cluster_mode("experimental_compile(), a graph over channels,")
+        raise waits_for("experimental_compile(), a graph over channels between "
+                        "actor processes,", ITEM_9_CHANNELS)
 
 
 class InputNode(DAGNode):

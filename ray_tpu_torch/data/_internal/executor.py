@@ -4,9 +4,9 @@ ray_tpu/data/_internal/executor.py).
 Reference architecture: python/ray/data/_internal/execution/
 streaming_executor.py:100. The JAX package maps block refs through
 remote tasks with a sliding window, or, in local mode, through the
-calling process. The port has local mode only (``init()`` without it
-raises, naming the cluster runtime's roadmap item): each op maps blocks
-in process, and functions pass by reference (nothing is pickled).
+calling process. The port maps blocks in the calling process in either
+mode (under a cluster too; the remote-task executor is ROADMAP.md Queue
+A item 11), and functions pass by reference (nothing is pickled).
 """
 
 from __future__ import annotations

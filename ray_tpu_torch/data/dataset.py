@@ -9,8 +9,8 @@ Consecutive per-block ops FUSE into one function per block (the
 reference planner's map-fusion); all-to-all ops (repartition, shuffle,
 sort, groupby) are barriers. Blocks are dicts of numpy arrays in the
 object store. The port runs the plan in the calling process, as the JAX
-package does in local mode (the port has no other); the streaming
-executor over remote tasks waits for the cluster runtime.
+package does in local mode, under a cluster too; the streaming executor
+over remote tasks is ROADMAP.md Queue A item 11.
 `iter_torch_batches` feeds the train step on the card.
 """
 
@@ -369,8 +369,8 @@ class Dataset:
         Consecutive _MapBlocks fuse into one function per block; runs of
         map stages (fused chains + actor-class stages) run in process,
         block after block (the JAX package's local mode; its STREAMING
-        executor, reference streaming_executor.py:100, waits for the
-        cluster runtime). Shuffles are barriers between segments."""
+        executor, reference streaming_executor.py:100, is ROADMAP.md
+        Queue A item 11). Shuffles are barriers between segments."""
         refs: Iterator[Any] = iter(self._source_refs)
         i = 0
         ops = self._ops

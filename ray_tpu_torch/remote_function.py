@@ -8,14 +8,11 @@ from __future__ import annotations
 
 import hashlib
 import inspect
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from ray_tpu_torch._private import worker as worker_mod
 from ray_tpu_torch._private.core import TaskOptions, normalize_resources
 from ray_tpu_torch._private.task_spec import FunctionDescriptor, SchedulingStrategy
-
-# JAX's config default task_max_retries_default; local mode never retries
-TASK_MAX_RETRIES_DEFAULT = 3
 
 
 def _strategy_from_option(opt) -> SchedulingStrategy:
@@ -39,6 +36,10 @@ class RemoteFunction:
         except (OSError, TypeError):
             src = self._name
         self._function_hash = hashlib.sha1(src.encode()).hexdigest()[:16]
+        # cloudpickled once here, like the reference's export-once function
+        # table (python/ray/_private/function_manager.py): re-pickling per
+        # submit was the dominant driver-side cost for small tasks
+        self._pickled_function: Optional[bytes] = None
         self._default_options = dict(task_options)
         self._descriptor = FunctionDescriptor(
             module_name=self._module,
@@ -62,6 +63,8 @@ class RemoteFunction:
         return self._remote(args, kwargs, self._default_options)
 
     def _build_opts(self, o: Dict[str, Any]) -> TaskOptions:
+        from ray_tpu_torch._private.config import config
+
         resources = normalize_resources(
             o.get("num_cpus"),
             o.get("num_gpus"),
@@ -72,7 +75,7 @@ class RemoteFunction:
         )
         max_retries = o.get("max_retries")
         if max_retries is None:
-            max_retries = TASK_MAX_RETRIES_DEFAULT
+            max_retries = config.task_max_retries_default
         num_returns = o.get("num_returns")
         if num_returns is None:
             # generator functions stream their yields by default

@@ -1,8 +1,9 @@
 """ray_tpu_torch.tune — hyperparameter tuning (PyTorch port of
 ray_tpu.tune; reference: python/ray/tune).
 
-Tuner runs trials as actors of the local-mode runtime (a trial asks for
-cards as ``resources_per_trial={"GPU": n}``); searchers expand
+Tuner runs trials as actors (on threads in local mode, in worker
+processes under a cluster; a trial asks for cards as
+``resources_per_trial={"GPU": n}``); searchers expand
 grid/random spaces or suggest them (TPE); ASHA, HyperBand, PBT and
 median-stopping schedulers stop or restart weak trials.
 """

@@ -7,8 +7,9 @@ early, results land in a ResultGrid.
 
 A trial's resource request names cards (``resources_per_trial=
 {"GPU": n}``, an actor's ``num_gpus``, where the JAX package's names TPU
-chips). Trials are actors of the local-mode runtime, so the trainable
-passes by reference (nothing is pickled). A trial may itself be a
+chips). Trials are actors: in local mode on threads, the trainable
+passed by reference; under a cluster in worker processes, the trainable
+pickled by the vendored cloudpickle. A trial may itself be a
 TorchTrainer run (Train-in-Tune, reference: train v2 runs as a Tune
 trial).
 """

@@ -7,8 +7,8 @@ Reference surface: python/ray/util/collective/collective.py —
 
 Backends: NCCL (the card; the JAX package's XLA backend) and GLOO (the
 CPU), both through ``nccl_group.NCCLGroup``. The JAX package's OBJSTORE
-backend and ``create_collective_group`` need the object store and the
-actor runtime, which are not ported: they raise NotImplementedError."""
+backend and ``create_collective_group`` (over the object store and
+actors) are not ported yet: they raise NotImplementedError."""
 
 from __future__ import annotations
 
@@ -132,12 +132,13 @@ def create_collective_group(
     backend: str = "nccl",
     group_name: str = "default",
 ) -> None:
-    """Declarative setup over actors (reference: collective.py:186):
-    needs the actor runtime, which ray_tpu_torch does not port yet."""
+    """Declarative setup over actors (reference: collective.py:186): not
+    ported yet."""
     raise NotImplementedError(
-        "create_collective_group needs the actor runtime, which ray_tpu_torch "
-        "does not port yet (ROADMAP.md Queue A item 5, 'create_collective_group "
-        "and OBJSTORE'); call init_collective_group in each process instead")
+        "create_collective_group, declared from the driver over actors, is not "
+        "ported to ray_tpu_torch yet (ROADMAP.md Queue A item 5, "
+        "'create_collective_group and OBJSTORE'); call init_collective_group in "
+        "each process instead")
 
 
 def is_group_initialized(group_name: str = "default") -> bool:

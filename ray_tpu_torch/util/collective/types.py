@@ -23,8 +23,8 @@ class Backend(str, enum.Enum):
         b = cls(name) if not isinstance(name, cls) else name
         if b == cls.OBJSTORE:
             raise NotImplementedError(
-                "the OBJSTORE backend needs the object store, which "
-                "ray_tpu_torch does not port yet (ROADMAP.md Queue A item 5, "
+                "the OBJSTORE backend (over the object store) is not ported "
+                "to ray_tpu_torch yet (ROADMAP.md Queue A item 5, "
                 "'create_collective_group and OBJSTORE'); use 'nccl' on the "
                 "card or 'gloo' on the CPU")
         return b

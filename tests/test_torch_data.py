@@ -501,28 +501,30 @@ def test_iter_torch_batches_needs_cuda_unless_told_cpu(monkeypatch):
         next(ds.iter_torch_batches(batch_size=2))
 
 
-# ---- what waits for the cluster runtime ----------------------------------
+# ---- Data under the cluster runtime ------------------------------------
 def test_cluster_execution_raises_naming_item_10b(tmp_path):
-    """The port's Data has no cluster branch: the one way into cluster
-    mode, ``init()`` without ``local_mode``, raises naming item 10b, and
-    under local mode every op, read and write runs in process."""
-    for call in (ray_tpu_torch.init, lambda: ray_tpu_torch.init(address="auto")):
-        with pytest.raises(NotImplementedError,
-                           match="Queue A item 10b, 'the actor runtime in cluster mode'"):
-            call()
+    """The port's Data has no cluster branch (its executor over remote
+    tasks is ROADMAP.md Queue A item 11): under a cluster, ``init()``, as
+    under local mode, every op, read and write runs in the driver's
+    process (tests/test_torch_cluster_libs.py holds the rows against
+    JAX's cluster)."""
     (tmp_path / "f.txt").write_text("a\nb\n")
-    ray_tpu_torch.init(local_mode=True)
-    try:
-        ex = Executor()
-        assert [ray_tpu_torch.get(r) for r in ex.map_refs(lambda b: b, iter([{"id": 1}]))] \
-            == [{"id": 1}]
-        assert ray_tpu_torch.data.range(4).map_batches(lambda b: b).random_shuffle(
-            seed=0).count() == 4
-        assert ray_tpu_torch.data.read_text(str(tmp_path / "f.txt")).take_all() \
-            == [{"text": "a"}, {"text": "b"}]
-        assert len(ray_tpu_torch.data.range(4).write_csv(str(tmp_path / "o"))) == 1
-    finally:
-        ray_tpu_torch.shutdown()
+    for kwargs in ({"num_cpus": 1}, {"local_mode": True}):
+        ray_tpu_torch.init(**kwargs)
+        try:
+            pids = []
+            ex = Executor()
+            assert [ray_tpu_torch.get(r) for r in ex.map_refs(
+                lambda b: pids.append(os.getpid()) or b, iter([{"id": 1}]))] == [{"id": 1}]
+            assert pids == [os.getpid()]
+            assert ray_tpu_torch.data.range(4).map_batches(lambda b: b).random_shuffle(
+                seed=0).count() == 4
+            assert ray_tpu_torch.data.read_text(str(tmp_path / "f.txt")).take_all() \
+                == [{"text": "a"}, {"text": "b"}]
+            out = str(tmp_path / f"o{len(kwargs)}{kwargs.get('num_cpus', 0)}")
+            assert len(ray_tpu_torch.data.range(4).write_csv(out)) == 1
+        finally:
+            ray_tpu_torch.shutdown()
 
 
 def test_data_fed_train_step():

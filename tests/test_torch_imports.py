@@ -52,6 +52,36 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert bad == []
 
 
+# the card's machine has neither: the port reads /proc for psutil and
+# pickles with its vendored cloudpickle (ray_tpu_torch/_private/cloudpickle)
+NOT_ON_THE_CARD = ("psutil", "cloudpickle")
+
+
+def test_port_imports_no_psutil_and_no_installed_cloudpickle():
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in _port_files()
+           for m in _imported_modules(f) if m.split(".")[0] in NOT_ON_THE_CARD]
+    assert bad == []
+    vendored = ROOT / "ray_tpu_torch" / "_private" / "cloudpickle"
+    assert {p.name for p in vendored.glob("*.py")} == {
+        "__init__.py", "cloudpickle.py", "cloudpickle_fast.py"}
+    assert "BSD" in (vendored / "LICENSE").read_text() or \
+        "Redistribution and use" in (vendored / "LICENSE").read_text()
+
+
+def test_zygote_import_initializes_no_cuda():
+    """The zygote's image (torch and the worker) must leave CUDA
+    uninitialized: a child forked after cuInit cannot use the card."""
+    code = ("import torch, ray_tpu_torch._private.workers.zygote, "
+            "ray_tpu_torch._private.workers.default_worker, "
+            "ray_tpu_torch._private.raylet.raylet, sys; "
+            "print(torch.cuda.is_initialized(), 'psutil' in sys.modules, "
+            "'cloudpickle' in sys.modules)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.split() == ["False", "False", "False"]
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.ops, "
             "ray_tpu_torch.models.convert, ray_tpu_torch.train, ray_tpu_torch.parallel, "
@@ -73,9 +103,20 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch.data.dataset, ray_tpu_torch.data.read_api, "
             "ray_tpu_torch.data._internal.executor, ray_tpu_torch.llm.batch, "
             "ray_tpu_torch.tune, ray_tpu_torch.tune.search, ray_tpu_torch.tune.schedulers, "
-            "ray_tpu_torch.tune.tpe, ray_tpu_torch.tune.tuner; "
+            "ray_tpu_torch.tune.tpe, ray_tpu_torch.tune.tuner, "
+            "ray_tpu_torch._private.config, ray_tpu_torch._private.debug_locks, "
+            "ray_tpu_torch._private.rpc, ray_tpu_torch._private.serialization, "
+            "ray_tpu_torch._private.object_store.client, ray_tpu_torch._private.drain, "
+            "ray_tpu_torch._private.runtime_env, ray_tpu_torch._private.gcs.server, "
+            "ray_tpu_torch._private.raylet.raylet, ray_tpu_torch._private.node, "
+            "ray_tpu_torch._private.core_worker, ray_tpu_torch._private.cluster_runtime, "
+            "ray_tpu_torch._private.workers.default_worker, "
+            "ray_tpu_torch._private.workers.zygote, ray_tpu_torch.observability, "
+            "ray_tpu_torch.util.metrics, ray_tpu_torch.util.state, "
+            "ray_tpu_torch.rllib.podracer.obs; "
             "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')))")
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu', "
+            "'psutil', 'cloudpickle')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
                          capture_output=True, text=True, timeout=120, check=True)
