@@ -98,6 +98,16 @@ before it and read just after:
   llama2_7b_lora steps on a trial actor's thread (step 0's loss
   bit-identical to the training steps', the best result the argmin,
   memory freed after each trial);
+- what waits on the cluster runtime, on one cluster of this node:
+  ScalingConfig(num_workers=4, min_workers=1, use_gpu=True) sized to the
+  node's one card, and that TorchTrainer fit of 2 llama2_7b_lora steps
+  in process (step 0's loss bit-identical to the training steps');
+  create_collective_group over a num_gpus=1 actor on NCCL (every op
+  against numpy in the actor's process); PPO, IMPALA, DQN and SAC with 2
+  env-runner actors each and the learner on the card, 3 iterations each,
+  the first held against the same driver with its learner on the CPU
+  (fragments bit-equal, params within 2e-5): ms an iteration, env
+  steps/s;
 - the RL learners: ray_tpu_torch.rllib's IMPALA, PPO, DQN, SAC and BC
   learners (hidden 64, 64) from one numpy init, 5 updates on the card
   held against the same 5 on the CPU, and each update timed;
@@ -306,8 +316,11 @@ def profiled(fn, top: int = 8, counts: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device activities only: a collective's GPU-side annotation ("nccl:all_reduce")
+    # spans its kernel and would count it twice
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:  # every fn profiled here runs on the card
         raise AssertionError("a profile holds no device activity: the profiler lost its "
                              "records (ROADMAP.md Queue C, 'a trace loses its device "
@@ -1408,21 +1421,8 @@ def collective_nccl(smi) -> None:
     with phase("collective_nccl"):
         col.init_collective_group(1, 0, "nccl", "smoke")
         try:
-            rng = np.random.RandomState(SEED)
-            xs = [(rng.random_sample((16, 3)) + 0.5).astype(np.float32) for _ in range(2)]
+            errs, xs = collective_errors("smoke")
             parts = [torch.from_numpy(x).cuda() for x in xs]
-            errs = {}
-            for op, f in NP_REDUCE.items():
-                red = f(np.stack(xs))
-                got = col.allreduce(parts, "smoke", op)
-                errs[f"allreduce_{op}"] = float(np.abs(got.cpu().numpy() - red).max())
-                got = col.reducescatter(parts, "smoke", op)
-                errs[f"reducescatter_{op}"] = float(np.abs(got.cpu().numpy() - red.reshape(2, 8, 3)).max())
-                if got.device.type != "cuda":
-                    raise AssertionError(f"{op}: result on {got.device}")
-            errs["allgather"] = float(np.abs(col.allgather(parts, "smoke").cpu().numpy() - np.stack(xs)).max())
-            errs["broadcast"] = float(np.abs(col.broadcast(parts[0], 0, "smoke").cpu().numpy() - xs[0]).max())
-            col.barrier("smoke")
 
             x = torch.randn(COLLECTIVE_BYTES // 2, device="cuda").to(torch.bfloat16)
             out = col.allreduce(x, "smoke")
@@ -1441,13 +1441,44 @@ def collective_nccl(smi) -> None:
                    "clone_ms": copy_ms, "what_is_timed": "world of one: a copy, no link traffic",
                    "card": smi}
             emit(row)
-            bad = {k: v for k, v in errs.items() if v > (1e-6 if "sum" in k or "mean" in k
-                                                         or "product" in k or k.startswith("sync")
-                                                         else 0.0)}
+            bad = collective_misses(errs)
             if bad:
                 raise AssertionError(f"collectives over NCCL disagree with numpy: {bad}")
         finally:
             col.destroy_collective_group("smoke")
+
+
+def collective_errors(group: str) -> tuple:
+    """Every op of ray_tpu_torch.util.collective over ``group`` (a world of
+    one on NCCL) on CUDA tensors, a list of 2 parts as one member holding
+    two devices would pass them, against numpy: the largest |error| of
+    each, and the parts as numpy."""
+    from ray_tpu_torch.util import collective as col
+
+    rng = np.random.RandomState(SEED)
+    xs = [(rng.random_sample((16, 3)) + 0.5).astype(np.float32) for _ in range(2)]
+    parts = [torch.from_numpy(x).cuda() for x in xs]
+    errs = {}
+    for op, f in NP_REDUCE.items():
+        red = f(np.stack(xs))
+        got = col.allreduce(parts, group, op)
+        errs[f"allreduce_{op}"] = float(np.abs(got.cpu().numpy() - red).max())
+        got = col.reducescatter(parts, group, op)
+        errs[f"reducescatter_{op}"] = float(np.abs(got.cpu().numpy() - red.reshape(2, 8, 3)).max())
+        if got.device.type != "cuda":
+            raise AssertionError(f"{op}: result on {got.device}")
+    errs["allgather"] = float(np.abs(col.allgather(parts, group).cpu().numpy() - np.stack(xs)).max())
+    errs["broadcast"] = float(np.abs(col.broadcast(parts[0], 0, group).cpu().numpy() - xs[0]).max())
+    col.barrier(group)
+    return errs, xs
+
+
+def collective_misses(errs: dict) -> dict:
+    """The errors of ``collective_errors`` past their bound: sums, means
+    and products 1e-6 (summation order), everything else exact."""
+    return {k: v for k, v in errs.items()
+            if v > (1e-6 if "sum" in k or "mean" in k or "product" in k or k.startswith("sync")
+                    else 0.0)}
 
 
 def median_ms(fn, n: int) -> float:
@@ -3311,6 +3342,292 @@ def moe_mesh_train_steps(smi, unsharded) -> dict:
 
 # the instantiation each main path launches (bf16, D=128), by mangled-name
 # substring, and its design
+# the phases over the cluster's worker group, collectives and runner actors
+ELASTIC_WORKERS, ELASTIC_STEPS = 4, 2  # train_elastic: the group asked for, its steps
+RL_DRIVER_ITERS = 3  # rl_drivers: iterations of each algorithm on the card
+RL_DRIVERS = {  # name: (config class, fields): 2 runner actors each, hidden RL_HIDDEN
+    "ppo": ("PPOConfig", {"num_env_runners": 2, "rollout_fragment_length": 256}),
+    "impala": ("IMPALAConfig", {"num_env_runners": 2, "rollout_fragment_length": 128,
+                                "fragments_per_iteration": 2}),
+    "dqn": ("DQNConfig", {"num_env_runners": 2, "rollout_fragment_length": 128,
+                          "learning_starts": 256}),
+    "sac": ("SACConfig", {"num_env_runners": 2, "rollout_fragment_length": 128,
+                          "learning_starts": 256}),
+}
+
+
+class CollectiveMember:
+    """collective_actors' actor (num_gpus=1): a worker process that
+    create_collective_group made a member of a group. Its first facts are
+    read before any card call."""
+
+    def __init__(self):
+        import ray_tpu_torch as rt
+
+        self.facts = {"cuda_initialized": torch.cuda.is_initialized(),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      "gpu_ids": rt.get_runtime_context().get_assigned_resources()["gpu_ids"],
+                      "pid": os.getpid()}
+
+    def worker_facts(self):
+        return self.facts
+
+    def errors(self, group):
+        """collective_errors on ``group``, the backend of the process group
+        it stands on, and this process's flash launches (none)."""
+        import torch.distributed as dist
+
+        from ray_tpu_torch.ops import attention as A
+
+        errs, _ = collective_errors(group)
+        return errs, dist.get_backend(), read_launches(A)
+
+    def leave(self, group):
+        from ray_tpu_torch.util import collective as col
+
+        col.destroy_collective_group(group)
+        return col.is_group_initialized(group)
+
+
+@contextlib.contextmanager
+def got_fragments(rt):
+    """The env-runner fragments ``rt.get`` returns while open, in the order
+    got (an algorithm's train() gets its runners' samples through it)."""
+    seen, plain = [], rt.get
+
+    def get(refs, *args, **kwargs):
+        out = plain(refs, *args, **kwargs)
+        for v in out if isinstance(out, list) else [out]:
+            if isinstance(v, dict) and "obs" in v:
+                seen.append(v)
+        return out
+
+    rt.get = get
+    try:
+        yield seen
+    finally:
+        rt.get = plain
+
+
+def fragment_key(frag) -> bytes:
+    return np.ascontiguousarray(frag["obs"]).tobytes()
+
+
+def train_elastic(rt, smi, unsharded) -> dict:
+    """Elastic sizing on the one-card node: ScalingConfig(num_workers=4,
+    min_workers=1, use_gpu=True) asks decide_num_workers, which reads the
+    cluster's totals ({"GPU": 1}) and sizes the group to 1, so
+    TorchTrainer.fit() runs the loop in this process; the loop takes
+    ELASTIC_STEPS llama2_7b_lora steps at full width (bf16, B=8 x 2048,
+    remat) from train_steps' seed and batch. Gates: one card advertised,
+    a group of 1 (the loop's world size), launches 64/32/32 a step, step
+    0's loss bit-identical to train_steps'. Prints each step's ms beside
+    train_steps' median. Returns the path's launches."""
+    from ray_tpu_torch import train as S
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.train.scaling_policy import decide_num_workers
+
+    cfg = T.config("llama2_7b_lora", param_dtype=torch.bfloat16)
+    want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+            "flash_bwd_dkv": cfg.layers}
+    with phase("train_elastic"):
+        res = rt.cluster_resources()
+        scaling = S.ScalingConfig(num_workers=ELASTIC_WORKERS, min_workers=1, use_gpu=True)
+        sized = decide_num_workers(scaling)
+        emit({"cluster_resources": res, "asked": ELASTIC_WORKERS, "sized_to": sized,
+              "worker_resources": scaling.worker_resources()})
+        if res.get("GPU") != 1 or sized != 1:
+            raise AssertionError(f"elastic sizing on {res}: {sized} workers, expected 1")
+        steps = []
+
+        def loop(config):
+            ctx = S.get_context()
+            opt = S.default_optimizer(cfg)
+            state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+            tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+                0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
+            run = S.make_train_step(cfg, opt, device="cuda")
+            for i in range(ELASTIC_STEPS):
+                before = read_launches(A)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = run(state, {"tokens": tokens})
+                loss = float(m["loss"])
+                ms = 1e3 * (time.perf_counter() - t0)
+                after = read_launches(A)
+                steps.append({"step": i, "loss": loss, "ms": ms,
+                              "launches": {k: after[k] - before[k] for k in after}})
+                S.report({"loss": loss, "step": i, "world": ctx.get_world_size()})
+
+        root = tempfile.mkdtemp(prefix="train_elastic_")
+        try:
+            # ---- the main path: counts from 0, read right after ----------
+            reset_launches(A)
+            fit = S.TorchTrainer(loop, train_loop_config={}, scaling_config=scaling,
+                                 run_config=S.RunConfig(name="elastic",
+                                                        storage_path=root)).fit()
+            launches = read_launches(A)
+            # ---- end of the main path ------------------------------------
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        ref = unsharded["metrics"][0]["loss"]
+        row = {"steps": steps, "world": fit.metrics.get("world"), "error": repr(fit.error),
+               "step0_loss": steps[0]["loss"] if steps else None, "train_steps_step0_loss": ref,
+               "step0_bit_identical": bool(steps) and steps[0]["loss"] == ref,
+               "train_steps_step_ms_median": unsharded["step_ms_median"],
+               "launches": launches, "clock": "host, synchronized", "card": smi}
+        emit(row)
+        if not (fit.error is None and fit.metrics.get("world") == 1
+                and len(steps) == ELASTIC_STEPS and row["step0_bit_identical"]
+                and all(s_["launches"] == want for s_ in steps)
+                and launches == {k: v * ELASTIC_STEPS for k, v in want.items()}):
+            raise AssertionError(f"train_elastic: {row}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def collective_actors(rt, smi) -> dict:
+    """create_collective_group over one num_gpus=1 actor on NCCL: the
+    actor's fresh worker (CUDA uninitialized, CUDA_VISIBLE_DEVICES naming
+    its lease) joins a world of one, and every op of
+    ray_tpu_torch.util.collective runs there on CUDA tensors against
+    numpy, as collective_nccl holds them in this process. Returns the
+    flash launches (none: the path runs no attention)."""
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.util import collective as col
+
+    with phase("collective_actors"):
+        member = rt.remote(num_gpus=1)(CollectiveMember).remote()
+        try:
+            facts = rt.get(member.worker_facts.remote(), timeout=300)
+            # ---- the main path: counts from 0, read right after ----------
+            reset_launches(A)
+            col.create_collective_group([member], 1, [0], "nccl", "actors")
+            errs, backend, worker = rt.get(member.errors.remote("actors"), timeout=300)
+            launches = {k: read_launches(A)[k] + worker[k] for k in COUNTERS}
+            # ---- end of the main path ------------------------------------
+            left = rt.get(member.leave.remote("actors"), timeout=60)
+        finally:
+            rt.kill(member)
+        row = {"worker": facts, "backend": backend, "max_abs_err": errs,
+               "group_left": not left, "launches": launches, "card": smi}
+        emit(row)
+        bad = collective_misses(errs)
+        if bad or backend != "nccl" or left or facts["cuda_initialized"] \
+                or facts["visible"] != "0" or facts["pid"] == os.getpid():
+            raise AssertionError(f"collective_actors: {row}; misses {bad}")
+    return launches
+
+
+def rl_drivers(rt, smi) -> dict:
+    """The RL algorithms over env-runner actors: PPO, IMPALA, DQN and SAC
+    (RL_DRIVERS: 2 SampleRunner / EnvRunner actors each, in worker
+    processes of the cluster with no card, hidden RL_HIDDEN) with the
+    learner on the card, RL_DRIVER_ITERS train() calls each; and the same
+    algorithm built with its learner on the CPU from the same numpy init,
+    one train(). Gates: the first iteration's fragments bit-equal to the
+    CPU build's (IMPALA's as a set: which of its runners lands first is a
+    race); the params after it within RL_TOL of the CPU learner's (IMPALA:
+    of a CPU learner fed the card run's fragments in its order), the
+    metrics within RL_TOL absolute and relative. Prints each iteration's
+    ms and env steps/s. Returns the flash launches (none)."""
+    from ray_tpu_torch import rllib as R
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib.impala import IMPALALearner
+
+    with phase("rl_drivers"):
+        # ---- the main path: counts from 0, read right after --------------
+        reset_launches(A)
+        rows, bad = [], {}
+        for name, (cls, fields) in RL_DRIVERS.items():
+            cfg = getattr(R, cls)(hidden=RL_HIDDEN, seed=SEED, **fields)
+            card = cfg.build(device="cuda")
+            cpu = getattr(R, cls)(hidden=RL_HIDDEN, seed=SEED, **fields).build(device="cpu")
+            try:
+                init = card.learner.get_weights_np()
+                cpu.learner.set_weights(init)
+                iters = []
+                for i in range(RL_DRIVER_ITERS):
+                    with got_fragments(rt) as frags:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        result = card.train()
+                        torch.cuda.synchronize()
+                        ms = 1e3 * (time.perf_counter() - t0)
+                    steps = sum(len(f["obs"]) for f in frags)
+                    iters.append({"iteration": i, "ms": ms, "env_steps": steps,
+                                  "env_steps_per_s": steps / (ms / 1e3),
+                                  "episode_return_mean": result["episode_return_mean"]})
+                    if i == 0:
+                        first, card_frags = result, frags
+                        card_params = card.learner.get_weights_np()
+                with got_fragments(rt) as cpu_frags:
+                    ref = cpu.train()
+                if name == "impala":
+                    replay = IMPALALearner(cfg, card.obs_dim, card.num_actions, device="cpu")
+                    replay.set_weights(init)
+                    for f in card_frags:
+                        ref = dict(ref, **replay.update(f))
+                    ref_params = replay.get_weights_np()
+                    pairs = zip(sorted(card_frags, key=fragment_key),
+                                sorted(cpu_frags, key=fragment_key))
+                else:
+                    ref_params = cpu.learner.get_weights_np()
+                    pairs = zip(card_frags, cpu_frags)
+                equal = len(card_frags) == len(cpu_frags) and all(
+                    a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+                    for a, b in pairs)
+                p_diff = max_tree_diff(card_params, ref_params)
+                metrics = {k: v for k, v in first.items()
+                           if k not in ("training_iteration",) and isinstance(v, float)}
+                if name == "impala":  # the learner's metrics; the returns are the race's
+                    metrics.pop("episode_return_mean")
+                m_diff, m_excess = metric_excess(metrics, {k: ref[k] for k in metrics}, RL_TOL)
+            finally:
+                card.stop()
+                cpu.stop()
+            row = {"algorithm": name, "runners": fields["num_env_runners"],
+                   "fragments_first_iteration": len(card_frags),
+                   "fragments_bit_equal_cpu": equal, "max_param_diff": p_diff,
+                   "max_metric_diff": m_diff, "metric_excess": m_excess, "tol": RL_TOL,
+                   "iterations": iters, "card": smi}
+            emit(row)
+            rows.append(row)
+            if not (equal and p_diff <= RL_TOL and m_excess <= 0.0):
+                bad[name] = row
+        launches = read_launches(A)
+        # ---- end of the main path ----------------------------------------
+        emit({"rl_drivers_launches": launches})
+        if bad:
+            raise AssertionError(f"rl_drivers: the card's drivers disagree with the CPU's: {bad}")
+    return launches
+
+
+def runtime_slice(smi, unsharded) -> dict:
+    """train_elastic, collective_actors and rl_drivers on one cluster of
+    this node (ray_tpu_torch.init(num_cpus=4)); every process of it gone
+    at the end. Returns each path's launches."""
+    import ray_tpu_torch as rt
+
+    out = {}
+    rt.init(num_cpus=4)
+    try:
+        t0 = time.perf_counter()
+        rt.get(rt.remote(lambda: os.getpid()).remote(), timeout=300)
+        emit({"runtime_slice_first_task_s": time.perf_counter() - t0})
+        out["train_elastic"] = train_elastic(rt, smi, unsharded)
+        out["collective_actors"] = collective_actors(rt, smi)
+        out["rl_drivers"] = rl_drivers(rt, smi)
+    finally:
+        rt.shutdown()
+    alive = cluster_processes()
+    if alive:
+        raise AssertionError(f"processes left after shutdown: {alive!r}")
+    return out
+
+
 SASS_FUNCTIONS = {"flash_fwd": ("flash_fwd_kernel_sm90ILi128E", "sm90_wgmma_tma"),
                   "flash_bwd_dq": ("flash_bwd_dq_kernel_sm90ILi128E", "sm90_wgmma_tma"),
                   "flash_bwd_dkv": ("flash_bwd_dkv_kernel_sm90ILi128E", "sm90_wgmma_tma")}
@@ -3448,6 +3765,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     fit, serve_ckpt = trainer_phases(smi, train_numbers)
     trials = tune_trials(smi, train_numbers)
+    slice15 = runtime_slice(smi, train_numbers)
     checkpoint_mesh_of_one(smi)
     mesh = mesh_train_steps(smi, train_numbers)
     gc.collect()
@@ -3476,7 +3794,8 @@ def main() -> int:
                                    "pipeline_train_step": pipe[name],
                                    "moe_train_step": moe[name],
                                    "moe_mesh_train_step": moe_mesh[name],
-                                   "rl_learners": rl[name], "anakin": anakin[name]}
+                                   "rl_learners": rl[name], "anakin": anakin[name],
+                                   **{path: slice15[path][name] for path in slice15}}
         if name != "flash_fwd":  # the training step is their main path
             row["launches"] = train[name]
 

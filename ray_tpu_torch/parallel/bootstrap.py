@@ -6,6 +6,12 @@ brings up the default process group the mesh (``build_mesh``) and the
 collective API (``ray_tpu_torch.util.collective``) run on. A single
 process skips it: a world of one needs no rendezvous.
 
+A worker group (``TorchTrainer``'s ``TrainWorker`` actors, or actors
+joined by ``create_collective_group``) takes its backend from
+``group_backend``: NCCL on the node's cards, each worker seeing its
+leased card as ``cuda:0``; gloo only where the cards are the CPU tests'
+fake ones. Nothing falls back from NCCL to gloo.
+
 Multi-slice (the JAX package's MEGASCALE DCN transport) has no port yet:
 ``megascale_env`` raises for more than one slice.
 """
@@ -13,12 +19,15 @@ Multi-slice (the JAX package's MEGASCALE DCN transport) has no port yet:
 from __future__ import annotations
 
 import dataclasses
+import os
 import socket
 from typing import Dict, List, Optional
 
+import torch
 import torch.distributed as dist
 
 from ray_tpu_torch import default_device
+from ray_tpu_torch.accelerators.gpu import FAKE_GPUS_ENV
 
 _DIST_INITIALIZED = False
 
@@ -56,18 +65,33 @@ def megascale_env(spec: HostGroupSpec) -> Dict[str, str]:
     return {}
 
 
+def group_backend() -> str:
+    """The backend of a worker group on this node: "nccl", unless the
+    node's cards are fake (``RAY_TPU_FAKE_GPUS``, which a worker inherits
+    from the cluster it was started by), where it is "gloo". Never chosen
+    from ``torch.cuda.is_available()``: a worker of real cards that sees
+    none raises in ``initialize_host``."""
+    return "gloo" if os.environ.get(FAKE_GPUS_ENV) else "nccl"
+
+
 def initialize_host(spec: HostGroupSpec, backend: str = "nccl") -> None:
     """Set up this host process for multi-process SPMD: the default
     process group over ``backend`` ("nccl" on the card, raising without
     one; "gloo" on the CPU), rank ``spec.process_id`` of
     ``spec.num_processes``, rendezvous at ``spec.coordinator_address``.
-    Idempotent within a process. Single-process groups skip it."""
+    Under NCCL the process's current device is ``cuda:0`` (a leased
+    worker's one visible card) before the rendezvous. Idempotent within a
+    process. Single-process groups skip it."""
     global _DIST_INITIALIZED
     megascale_env(spec)
     if backend == "nccl":
         default_device(None)
     if spec.num_processes <= 1 or _DIST_INITIALIZED:
         return
+    if backend == "nccl":
+        # a zygote-forked worker never touched CUDA: pick its card before
+        # NCCL makes a communicator on whatever device is current
+        torch.cuda.set_device(0)
     dist.init_process_group(
         backend, init_method=f"tcp://{spec.coordinator_address}",
         world_size=spec.num_processes, rank=spec.process_id)

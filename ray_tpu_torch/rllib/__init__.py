@@ -1,18 +1,21 @@
 """ray_tpu_torch.rllib — reinforcement learning on the card (PyTorch port
 of ray_tpu.rllib; reference: rllib/).
 
-What runs in one process is ported: the learners of PPO, IMPALA
+The learners of PPO, IMPALA
 (V-trace), DQN (double Q), SAC (discrete, tuned α) and BC, each an MLP
-update with Adam on the card, fed numpy batches; and Anakin
+update with Adam on the card, fed numpy batches; Anakin
 (``podracer``), whose rollout over a batched torch CartPole, V-trace loss
 and Adam step all run on the card, its envs split over a process group's
 ranks. The gymnasium-style env API, the numpy CartPole, GAE, the replay
 buffer and the offline JSON reader and writer are numpy copies.
 
-What needs the actor runtime raises when used, naming ROADMAP.md Queue A
-item 8c: the algorithms ``PPO``, ``IMPALA``, ``DQN`` and ``SAC``
-(``XConfig.build()``), ``SampleRunner``, ``Sebulba`` and the multi-agent
-names. Every entry point takes ``device``: None means the card.
+The algorithms ``PPO``, ``IMPALA``, ``DQN``, ``SAC`` and
+``MultiAgentPPO`` (``XConfig.build()``) drive their env-runner actors
+(``SampleRunner``, PPO's ``EnvRunner``, ``MultiAgentEnvRunner``: numpy
+inference, no card) on the actor runtime and feed their learners.
+``Sebulba`` raises when used, naming ROADMAP.md Queue A item 8c,
+'Sebulba': it waits for the tensor channel. Every entry point takes
+``device``: None means the card.
 """
 
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig

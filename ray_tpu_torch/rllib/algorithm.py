@@ -6,16 +6,17 @@ the same for every algorithm; each config dataclass inherits them and
 sets ``algo_cls`` after its algorithm class is defined. ``build`` passes
 keyword arguments on to the algorithm (the port's ``device=``).
 
-``waits_for_runtime`` makes the stand-in for a name that needs the actor
-runtime (the algorithms over env-runner actors, Sebulba and
-multi-agent): using it raises, naming ROADMAP.md's row.
+``waits_for_runtime`` makes the stand-in for a name of Sebulba, which
+needs the shared-memory tensor channel (``experimental/channel.py``'s
+``TensorChannel``) besides the actor runtime: using it raises, naming
+ROADMAP.md's row.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
-ITEM_8C = "ROADMAP.md Queue A item 8c, 'the RL algorithms on actors, and Sebulba'"
+ITEM_8C = "ROADMAP.md Queue A item 8c, 'Sebulba'"
 
 
 class AlgorithmConfigBase:
@@ -44,12 +45,13 @@ class AlgorithmConfigBase:
 
 def waits_for_runtime(name: str, what: str) -> type:
     """A class named ``name`` whose construction raises
-    NotImplementedError: ``what`` runs on the actor runtime, which the
-    port does not have yet."""
+    NotImplementedError: ``what`` streams through the tensor channel,
+    which the port does not have yet."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             f"{name}: {what} is not ported to ray_tpu_torch yet; it waits for "
-            f"the actor runtime ({ITEM_8C}, after item 10)")
+            f"the tensor channel ({ITEM_8C}, after item 9's "
+            "'experimental/channel.py')")
 
     return type(name, (), {"__init__": __init__, "__doc__": f"Not ported: {what}."})

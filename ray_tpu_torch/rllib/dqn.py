@@ -4,25 +4,28 @@ double Q-learning with a target network.
 Reference: rllib/algorithms/dqn/dqn.py (`DQN`, training_step) and
 dqn_rainbow_learner.py. The update (double-DQN target, Huber loss, Adam)
 runs on the card; the target net is a copy of the params made every
-``target_network_update_freq`` updates. The algorithm ``DQN`` (epsilon-
-greedy env-runner actors, the replay buffer) waits for the actor runtime
-and raises.
+``target_network_update_freq`` updates. The algorithm ``DQN`` samples
+with epsilon-greedy ``SampleRunner`` actors into the numpy replay buffer
+and takes its minibatch updates on the learner's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch import default_device
 from ray_tpu_torch.rllib.adam import clone
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfigBase, waits_for_runtime
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfigBase
+from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.ppo import take
 from ray_tpu_torch.rllib.rollout import (
-    Learner, floats, generator, init_mlp_params, mlp_apply, to_device, worker_seed,
+    Learner, ReplayBuffer, RunnerAlgorithm, SampleRunner, floats, generator, init_mlp_params,
+    mlp_apply, to_device, worker_seed,
 )
 
 
@@ -102,6 +105,70 @@ class DQNLearner(Learner):
     def update(self, batch_np: Dict[str, np.ndarray]) -> Dict[str, float]:
         return floats(self._update(to_device(batch_np, self.device)))
 
+    def state(self) -> Dict[str, Any]:
+        return {"params": self.params, "target": self.target_params,
+                "opt_state": self.opt_state}
 
-DQN = waits_for_runtime("DQN", "the DQN algorithm (epsilon-greedy env-runner actors)")
+    def load_state(self, state: Dict[str, Any]) -> None:
+        super().load_state(state)
+        self.target_params = state["target"]
+
+
+class DQN(RunnerAlgorithm):
+    """Reference: rllib/algorithms/dqn/dqn.py `DQN.training_step`:
+    sample → store in replay → N minibatch updates → sync target."""
+
+    def __init__(self, cfg: DQNConfig, device=None):
+        probe = make_env(cfg.env)
+        self.cfg = cfg
+        self.obs_dim = probe.observation_dim
+        self.num_actions = probe.num_actions
+        self.learner = DQNLearner(cfg, self.obs_dim, self.num_actions, device=device)
+        # the buffer draws from the same fan-out, one index past the runners
+        self.buffer = ReplayBuffer(
+            cfg.buffer_capacity, self.obs_dim,
+            worker_seed(cfg.seed, cfg.num_env_runners))
+        self.runners = [
+            SampleRunner.remote(cfg.env, cfg.hidden, worker_seed(cfg.seed, i),
+                                mode="epsilon", net_key="q")
+            for i in range(cfg.num_env_runners)
+        ]
+        self.iteration = 0
+        self._recent_returns: List[float] = []
+
+    def _epsilon(self) -> float:
+        cfg = self.cfg
+        frac = min(1.0, self.iteration / max(1, cfg.epsilon_decay_iters))
+        return cfg.epsilon_initial + frac * (
+            cfg.epsilon_final - cfg.epsilon_initial)
+
+    def train(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        weights = self.learner.get_weights_np()
+        eps = self._epsilon()
+        frags = ray_tpu_torch.get([
+            r.sample.remote(weights, cfg.rollout_fragment_length, eps)
+            for r in self.runners
+        ])
+        for f in frags:
+            self.buffer.add_batch(f)
+            self._recent_returns.extend(f["episode_returns"].tolist())
+        metrics: Dict[str, float] = {}
+        if len(self.buffer) >= cfg.learning_starts:
+            for _ in range(cfg.updates_per_iteration):
+                metrics = self.learner.update(
+                    self.buffer.sample(cfg.train_batch_size))
+        self.iteration += 1
+        self._recent_returns = self._recent_returns[-100:]
+        mean_ret = float(np.mean(self._recent_returns)) \
+            if self._recent_returns else 0.0
+        return {
+            "training_iteration": self.iteration,
+            "episode_return_mean": mean_ret,
+            "epsilon": eps,
+            "replay_buffer_size": len(self.buffer),
+            **metrics,
+        }
+
+
 DQNConfig.algo_cls = DQN

@@ -6,8 +6,8 @@ is the reverse recurrence of the JAX package's ``lax.scan`` V-trace as a
 loop over the leading T axis, batched over any trailing axes (Anakin's
 envs), with fp32 carries; ``vtrace_np`` is the numpy reference, copied.
 ``IMPALALearner`` runs the V-trace policy-gradient, value and entropy
-loss and Adam on the card. The async algorithm ``IMPALA`` (env-runner
-actors) waits for the actor runtime and raises.
+loss and Adam on the card. ``IMPALA`` is the async actor-learner over
+``SampleRunner`` actors: each runner always has a sample in flight.
 
 Mid-fragment truncations are treated as terminations for the discount
 (small value bias at time-limit boundaries; the fragment TAIL always
@@ -17,16 +17,20 @@ bootstraps from V(last_obs)).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch import default_device
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfigBase, waits_for_runtime
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfigBase
+from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.ppo import entropy_of, init_policy, policy_logits, take, value_fn
-from ray_tpu_torch.rllib.rollout import Learner, floats, generator, to_device, worker_seed
+from ray_tpu_torch.rllib.rollout import (
+    Learner, RunnerAlgorithm, SampleRunner, floats, generator, to_device, worker_seed,
+)
 
 
 def vtrace_np(values, next_values, rewards, discounts, rhos, cs,
@@ -145,5 +149,68 @@ class IMPALALearner(Learner):
         return {"pi": self.get_weights_np()["pi"]}
 
 
-IMPALA = waits_for_runtime("IMPALA", "the async IMPALA algorithm (env-runner actors)")
+class IMPALA(RunnerAlgorithm):
+    """Async actor-learner (reference: impala.py:643): runners always
+    have a sample in flight; the learner consumes whichever fragment
+    lands first and hands that runner fresh weights."""
+
+    def __init__(self, cfg: IMPALAConfig, device=None):
+        probe = make_env(cfg.env)
+        self.cfg = cfg
+        self.obs_dim = probe.observation_dim
+        self.num_actions = probe.num_actions
+        self.learner = IMPALALearner(cfg, self.obs_dim, self.num_actions, device=device)
+        self.runners = [
+            SampleRunner.remote(cfg.env, cfg.hidden, worker_seed(cfg.seed, i),
+                                mode="categorical", net_key="pi")
+            for i in range(cfg.num_env_runners)
+        ]
+        self.iteration = 0
+        self._recent_returns: List[float] = []
+        self._inflight: Dict[Any, Any] = {}  # future -> runner
+
+    def _submit(self, runner) -> None:
+        w = self.learner.get_policy_np()
+        fut = runner.sample.remote(w, self.cfg.rollout_fragment_length)
+        self._inflight[fut] = runner
+
+    def train(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        if not self._inflight:
+            for r in self.runners:
+                self._submit(r)
+        metrics: Dict[str, float] = {}
+        processed = 0
+        while processed < cfg.fragments_per_iteration:
+            ready, _ = ray_tpu_torch.wait(list(self._inflight), num_returns=1)
+            fut = ready[0]
+            runner = self._inflight.pop(fut)
+            frag = ray_tpu_torch.get(fut)
+            self._submit(runner)  # keep the pipe full with fresh weights
+            metrics = self.learner.update(frag)
+            self._recent_returns.extend(frag["episode_returns"].tolist())
+            processed += 1
+        self.iteration += 1
+        self._recent_returns = self._recent_returns[-100:]
+        mean_ret = float(np.mean(self._recent_returns)) \
+            if self._recent_returns else 0.0
+        return {
+            "training_iteration": self.iteration,
+            "episode_return_mean": mean_ret,
+            "num_env_steps_sampled":
+                cfg.fragments_per_iteration * cfg.rollout_fragment_length,
+            **metrics,
+        }
+
+    def stop(self) -> None:
+        # drain in-flight samples so runner kills don't race
+        for fut in list(self._inflight):
+            try:
+                ray_tpu_torch.cancel(fut)
+            except Exception:  # noqa: BLE001
+                pass  # sample already completed — nothing to cancel
+        self._inflight.clear()
+        super().stop()
+
+
 IMPALAConfig.algo_cls = IMPALA

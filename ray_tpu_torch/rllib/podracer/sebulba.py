@@ -1,7 +1,8 @@
 """Sebulba (PyTorch port of ray_tpu/rllib/podracer/sebulba.py): not
 ported. Its pod actors stream fragments through shared-memory tensor
-channels into learner actors; all of it waits for the actor runtime
-(ROADMAP.md Queue A item 8c), and every name here raises when used.
+channels (the JAX package's ``experimental/channel.py``
+``TensorChannel``, not ported yet) into learner actors; every name here
+raises when used, naming ROADMAP.md Queue A item 8c, 'Sebulba'.
 """
 
 from __future__ import annotations

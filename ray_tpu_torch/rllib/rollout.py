@@ -1,23 +1,26 @@
 """Shared rollout machinery (PyTorch port of ray_tpu/rllib/rollout.py).
 
-``worker_seed``, the numpy ``mlp_forward`` and ``ReplayBuffer`` are
-copies: numpy, as the JAX package has them. ``init_mlp_params`` and
-``mlp_apply`` are the torch twins of the JAX package's, the one network
-definition every learner (PPO, DQN, SAC, IMPALA, BC) and Anakin build
-from. ``SampleRunner``, the env-runner actor, waits for the actor
-runtime and raises.
+``worker_seed``, the numpy ``mlp_forward``, ``ReplayBuffer`` and the
+env-runner actor ``SampleRunner`` are copies: numpy, as the JAX package
+has them (tiny nets, policy inference in the runner's process, no
+card). ``init_mlp_params`` and ``mlp_apply`` are the torch twins of the
+JAX package's, the one network definition every learner (PPO, DQN, SAC,
+IMPALA, BC) and Anakin build from. ``RunnerAlgorithm`` is what the
+drivers over runner actors share: stopping the runners, and saving and
+restoring the learner through ``train.checkpoint``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.rllib.adam import Adam, tree_leaves
-from ray_tpu_torch.rllib.algorithm import waits_for_runtime
+import ray_tpu_torch
+from ray_tpu_torch.rllib.adam import Adam, tree_leaves, tree_map
 from ray_tpu_torch.rllib.convert import adam_state_from_jax, params_from_jax, to_numpy
+from ray_tpu_torch.rllib.env import Env, make_env
 
 
 def worker_seed(base_seed: int, worker_index: int) -> int:
@@ -38,13 +41,17 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
 
 def to_device(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """numpy arrays as tensors on ``device``; floats in fp32, as
-    ``jnp.asarray`` gives them without x64."""
+    ``jnp.asarray`` gives them without x64. A read-only array (a fragment
+    read from the object store) is copied: a tensor never aliases it."""
     out = {}
     for k, a in arrays.items():
         a = np.asarray(a)
         if a.dtype.kind == "f":
             a = a.astype(np.float32, copy=False)
-        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:
+            a = a.copy()
+        out[k] = torch.from_numpy(a).to(device)
     return out
 
 
@@ -111,8 +118,110 @@ class Learner:
     def get_weights_np(self) -> Dict:
         return to_numpy(self.params)
 
+    def state(self) -> Dict[str, Any]:
+        """The tree a checkpoint holds (the JAX algorithms' ``save``)."""
+        return {"params": self.params, "opt_state": self.opt_state}
 
-SampleRunner = waits_for_runtime("SampleRunner", "the env-runner actor")
+    def load_state(self, state: Dict[str, Any]) -> None:
+        self.params = tree_map(lambda t: t.requires_grad_(), state["params"])
+        self.opt_state = state["opt_state"]
+
+
+class RunnerAlgorithm:
+    """What the algorithms over env-runner actors share: ``runners`` (actor
+    handles) and a ``learner`` on its device."""
+
+    runners: List[Any]
+    learner: Learner
+
+    def stop(self) -> None:
+        for r in self.runners:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:  # noqa: BLE001
+                pass  # runner already dead — kill is best-effort
+
+    # checkpointing (reference: Checkpointable, algorithm.py:208)
+    def save(self, path: str) -> None:
+        from ray_tpu_torch.train.checkpoint import save_state
+
+        save_state(self.learner.state(), path)
+
+    def restore(self, path: str) -> None:
+        from ray_tpu_torch.train.checkpoint import restore_state
+
+        self.learner.load_state(restore_state(path, target=self.learner.state(),
+                                              device=self.learner.device))
+
+
+@ray_tpu_torch.remote
+class SampleRunner:
+    """Env-runner actor collecting transition fragments.
+
+    mode="categorical": sample from softmax(logits of params[net_key]),
+    also records behavior log-probs (IMPALA's v-trace needs them).
+    mode="epsilon": epsilon-greedy argmax over params[net_key] outputs
+    (Q-values; DQN).
+    """
+
+    def __init__(self, env_spec, hidden: Tuple[int, ...], seed: int,
+                 mode: str = "categorical", net_key: str = "pi"):
+        self.env: Env = make_env(env_spec)
+        self.n_hidden = len(hidden)
+        self.mode = mode
+        self.net_key = net_key
+        self.rng = np.random.RandomState(seed)
+        self.obs, _ = self.env.reset(seed=seed)
+        self.episode_return = 0.0
+        self.completed_returns: List[float] = []
+
+    def sample(self, params_np: Dict, num_steps: int,
+               epsilon: float = 0.0) -> Dict[str, np.ndarray]:
+        net = params_np[self.net_key]
+        obs_b, act_b, rew_b, next_b, term_b, trunc_b, logp_b = \
+            [], [], [], [], [], [], []
+        for _ in range(num_steps):
+            out = mlp_forward(net, self.obs, self.n_hidden)
+            if self.mode == "epsilon":
+                if self.rng.rand() < epsilon:
+                    a = int(self.rng.randint(len(out)))
+                else:
+                    a = int(np.argmax(out))
+                logp = 0.0
+            else:
+                z = out - out.max()
+                p = np.exp(z) / np.exp(z).sum()
+                a = int(self.rng.choice(len(p), p=p))
+                logp = float(np.log(p[a] + 1e-10))
+            nobs, rew, term, trunc, _ = self.env.step(a)
+            obs_b.append(self.obs)
+            act_b.append(a)
+            rew_b.append(rew)
+            next_b.append(nobs)
+            term_b.append(term)
+            trunc_b.append(bool(trunc and not term))
+            logp_b.append(logp)
+            self.episode_return += rew
+            if term or trunc:
+                self.completed_returns.append(self.episode_return)
+                self.episode_return = 0.0
+                self.obs, _ = self.env.reset()
+            else:
+                self.obs = nobs
+        rets = self.completed_returns
+        self.completed_returns = []
+        return {
+            "obs": np.asarray(obs_b, np.float32),
+            "actions": np.asarray(act_b, np.int32),
+            "rewards": np.asarray(rew_b, np.float32),
+            "next_obs": np.asarray(next_b, np.float32),
+            "terminateds": np.asarray(term_b, np.bool_),
+            "truncs": np.asarray(trunc_b, np.bool_),
+            "logp": np.asarray(logp_b, np.float32),
+            # V(s_T) bootstrap obs for the fragment tail (IMPALA)
+            "last_obs": np.asarray(self.obs, np.float32),
+            "episode_returns": np.asarray(rets, np.float32),
+        }
 
 
 class ReplayBuffer:

@@ -6,26 +6,29 @@ Reference: rllib/algorithms/sac/sac.py (`SAC`) and sac_learner.py; the
 discrete-action formulation takes expectations over the categorical
 policy instead of the reparameterization trick. One update trains the
 actor, both critics and log α with Adam on the card; the target critics
-track by Polyak averaging in the same step. The algorithm ``SAC`` (env-
-runner actors, the replay buffer) waits for the actor runtime and
-raises.
+track by Polyak averaging in the same step. The algorithm ``SAC`` is
+DQN's loop (``SampleRunner`` actors sampling the categorical policy,
+the numpy replay buffer, minibatch updates) with these losses.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch import default_device
 from ray_tpu_torch.rllib.adam import clone, tree_leaves
-from ray_tpu_torch.rllib.algorithm import AlgorithmConfigBase, waits_for_runtime
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfigBase
+from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.ppo import take
 from ray_tpu_torch.rllib.rollout import (
-    Learner, floats, generator, init_mlp_params, mlp_apply as _mlp, to_device, worker_seed,
+    Learner, ReplayBuffer, RunnerAlgorithm, SampleRunner, floats, generator, init_mlp_params,
+    mlp_apply as _mlp, to_device, worker_seed,
 )
 
 
@@ -129,6 +132,61 @@ class SACLearner(Learner):
         """Only the actor net — all the runners need, 1/3 the payload."""
         return {"pi": self.get_weights_np()["pi"]}
 
+    def state(self) -> Dict[str, Any]:
+        return {"params": self.params, "target": self.target, "opt_state": self.opt_state}
 
-SAC = waits_for_runtime("SAC", "the SAC algorithm (env-runner actors, the replay buffer)")
+    def load_state(self, state: Dict[str, Any]) -> None:
+        super().load_state(state)
+        self.target = state["target"]
+
+
+class SAC(RunnerAlgorithm):
+    """Reference: rllib/algorithms/sac/sac.py — training_step is DQN's
+    (sample → replay → updates) with the SAC losses."""
+
+    def __init__(self, cfg: SACConfig, device=None):
+        probe = make_env(cfg.env)
+        self.cfg = cfg
+        self.obs_dim = probe.observation_dim
+        self.num_actions = probe.num_actions
+        self.learner = SACLearner(cfg, self.obs_dim, self.num_actions, device=device)
+        # the buffer draws from the same fan-out, one index past the runners
+        self.buffer = ReplayBuffer(
+            cfg.buffer_capacity, self.obs_dim,
+            worker_seed(cfg.seed, cfg.num_env_runners))
+        self.runners = [
+            SampleRunner.remote(cfg.env, cfg.hidden, worker_seed(cfg.seed, i),
+                                mode="categorical", net_key="pi")
+            for i in range(cfg.num_env_runners)
+        ]
+        self.iteration = 0
+        self._recent_returns: List[float] = []
+
+    def train(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        weights = self.learner.get_policy_np()
+        frags = ray_tpu_torch.get([
+            r.sample.remote(weights, cfg.rollout_fragment_length)
+            for r in self.runners
+        ])
+        for f in frags:
+            self.buffer.add_batch(f)
+            self._recent_returns.extend(f["episode_returns"].tolist())
+        metrics: Dict[str, float] = {}
+        if len(self.buffer) >= cfg.learning_starts:
+            for _ in range(cfg.updates_per_iteration):
+                metrics = self.learner.update(
+                    self.buffer.sample(cfg.train_batch_size))
+        self.iteration += 1
+        self._recent_returns = self._recent_returns[-100:]
+        mean_ret = float(np.mean(self._recent_returns)) \
+            if self._recent_returns else 0.0
+        return {
+            "training_iteration": self.iteration,
+            "episode_return_mean": mean_ret,
+            "replay_buffer_size": len(self.buffer),
+            **metrics,
+        }
+
+
 SACConfig.algo_cls = SAC

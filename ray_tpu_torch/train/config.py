@@ -49,10 +49,15 @@ class ScalingConfig:
         return self.min_workers is not None
 
     def worker_resources(self) -> Dict[str, float]:
+        """What one worker leases. A ``use_gpu`` worker takes
+        ``gpus_per_worker`` cards, one when that is unset (a JAX worker
+        takes chips only when ``chips_per_worker`` is set: a GPU worker
+        group is sized in cards)."""
         res = dict(self.resources_per_worker or {})
         res.setdefault("CPU", self.num_cpus_per_worker)
-        if self.use_gpu and self.gpus_per_worker:
-            res.setdefault("GPU", self.gpus_per_worker)
+        gpus = 1 if self.gpus_per_worker is None else self.gpus_per_worker
+        if self.use_gpu and gpus:
+            res.setdefault("GPU", gpus)
         return res
 
 

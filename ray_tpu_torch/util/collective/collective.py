@@ -6,12 +6,14 @@ Reference surface: python/ray/util/collective/collective.py —
 `barrier`, `broadcast`, `allgather`, `reducescatter`, `send`/`recv`.
 
 Backends: NCCL (the card; the JAX package's XLA backend) and GLOO (the
-CPU), both through ``nccl_group.NCCLGroup``. The JAX package's OBJSTORE
-backend and ``create_collective_group`` (over the object store and
-actors) are not ported yet: they raise NotImplementedError."""
+CPU), both through ``nccl_group.NCCLGroup``; ``create_collective_group``
+declares a group over actors from the driver. The JAX package's
+OBJSTORE backend (over the object store) is not ported yet: it raises
+NotImplementedError."""
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Any, Dict, List, Optional
@@ -132,13 +134,43 @@ def create_collective_group(
     backend: str = "nccl",
     group_name: str = "default",
 ) -> None:
-    """Declarative setup over actors (reference: collective.py:186): not
-    ported yet."""
-    raise NotImplementedError(
-        "create_collective_group, declared from the driver over actors, is not "
-        "ported to ray_tpu_torch yet (ROADMAP.md Queue A item 5, "
-        "'create_collective_group and OBJSTORE'); call init_collective_group in "
-        "each process instead")
+    """Declarative setup: make ``actors`` a collective group by invoking
+    init on each (reference: collective.py:186), through the actor's own
+    ``_init_collective(world_size, rank, backend, group_name)`` if it has
+    one, else ``__ray_call__``. The actors run on one node: a group of
+    several ranks joins a fresh default process group of ``world_size``
+    processes first (``bootstrap.local_process_specs``: a free port on
+    this host) in every actor that has none. Waits for every member."""
+    import ray_tpu_torch
+    from ray_tpu_torch.parallel.bootstrap import local_process_specs
+
+    backend = Backend.resolve(backend).value  # OBJSTORE raises here
+    specs = ([dataclasses.asdict(s) for s in local_process_specs(world_size)]
+             if world_size > 1 else [None] * world_size)
+    futs = [
+        a._init_collective.remote(world_size, r, backend, group_name)
+        if hasattr(a, "_init_collective")
+        else a.__ray_call__.remote(
+            lambda self, w=world_size, rk=r, b=backend, g=group_name, sp=specs[r]:
+            _join_collective_group(w, rk, b, g, sp)
+        )
+        for a, r in zip(actors, ranks)
+    ]
+    ray_tpu_torch.get(futs)
+
+
+def _join_collective_group(world_size: int, rank: int, backend: str, group_name: str,
+                           spec: Optional[Dict[str, Any]]) -> None:
+    """One actor's part of ``create_collective_group``: the default
+    process group from ``spec`` when the process has none, then the
+    group."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.bootstrap import HostGroupSpec, initialize_host
+
+    if spec is not None and not dist.is_initialized():
+        initialize_host(HostGroupSpec(**spec), backend)
+    init_collective_group(world_size, rank, backend, group_name)
 
 
 def is_group_initialized(group_name: str = "default") -> bool:

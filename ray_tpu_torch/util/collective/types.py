@@ -4,8 +4,9 @@ Backends:
 - NCCL: collectives over a ``torch.distributed`` NCCL group, tensors on
         the card. The counterpart of the JAX package's XLA backend.
 - GLOO: the same group over gloo, tensors on the CPU.
-- OBJSTORE: the JAX package's host collectives through the object store;
-        the object store is not ported, so choosing it raises.
+- OBJSTORE: the JAX package's host collectives through the object store
+        and its shared-memory v2 stack; not ported, so choosing it
+        raises.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ class Backend(str, enum.Enum):
             raise NotImplementedError(
                 "the OBJSTORE backend (over the object store) is not ported "
                 "to ray_tpu_torch yet (ROADMAP.md Queue A item 5, "
-                "'create_collective_group and OBJSTORE'); use 'nccl' on the "
+                "'OBJSTORE'); use 'nccl' on the "
                 "card or 'gloo' on the CPU")
         return b
 

@@ -1,5 +1,5 @@
-"""The port stands alone: ray_tpu_torch, chip_smoke.py and chip_repeats.py
-import nothing of JAX or of the JAX package, and no entry point runs on the
+"""The port stands alone: ray_tpu_torch, chip_smoke.py, chip_repeats.py and
+chip_cards.py import nothing of JAX or of the JAX package, and no entry point runs on the
 CPU unless a caller asks for it."""
 
 import ast
@@ -31,8 +31,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                             ROOT / "chip_repeats.py"]
+    return sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_repeats.py", ROOT / "chip_cards.py"]
 
 
 def _imported_modules(path):
@@ -204,3 +204,13 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_chip_cards_refuses_without_four_cards(tmp_path):
+    """No card: chip_cards.py exits non-zero before it starts anything and
+    prints no result."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_cards.py")], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 1 and "needs 4 cards" in out.stderr
+    assert '"ok": true' not in out.stdout

@@ -328,23 +328,91 @@ def test_json_round_trip_both_ways(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# What waits for the actor runtime, and the card
+# The names of item 8c, Sebulba's that wait for the tensor channel, and the card
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", [
-    "PPO", "IMPALA", "DQN", "SAC", "SampleRunner", "Sebulba", "SebulbaConfig",
-    "MultiAgentPPO", "MultiAgentPPOConfig", "CoordinationGame", "MultiAgentEnv",
-    "PPOConfig.build", "IMPALAConfig.build", "DQNConfig.build", "SACConfig.build",
-    "EnvRunner",
-])
+@pytest.mark.parametrize("name", ["Sebulba", "SebulbaConfig"])
 def test_item_8c_names_raise(name):
-    if name.endswith(".build"):
-        call = getattr(trl, name.split(".")[0])().build
-    elif name == "EnvRunner":
-        call = tppo.EnvRunner
-    else:
-        call = getattr(trl, name)
-    with pytest.raises(NotImplementedError, match="Queue A item 8c"):
-        call()
+    with pytest.raises(NotImplementedError, match="Queue A item 8c, 'Sebulba'"):
+        getattr(trl, name)()
+
+
+@pytest.fixture
+def local_mode():
+    import ray_tpu_torch as rt
+
+    rt.init(local_mode=True)
+    yield
+    rt.shutdown()
+
+
+SMALL = dict(hidden=(8,), rollout_fragment_length=16, seed=1)
+
+
+def _algo_runs(algo):
+    try:
+        result = algo.train()
+    finally:
+        algo.stop()
+    assert result["training_iteration"] == 1
+    return result
+
+
+def _runner_samples(actor, *args):
+    frag = __import__("ray_tpu_torch").get(actor.sample.remote(*args))
+    assert frag["obs"].shape == (16, 4) and frag["actions"].dtype == np.int32
+    return frag
+
+
+def _policy(hidden=(8,)):
+    return jrl.ppo.PPOLearner(jrl.PPOConfig(hidden=hidden), 4, 2).get_weights_np()
+
+
+ITEM_8C_RUNS = {
+    "PPO": lambda: _algo_runs(trl.PPO(trl.PPOConfig(num_env_runners=1, minibatch_size=8,
+                                                    **SMALL), device="cpu")),
+    "IMPALA": lambda: _algo_runs(trl.IMPALA(trl.IMPALAConfig(
+        num_env_runners=1, fragments_per_iteration=1, **SMALL), device="cpu")),
+    "DQN": lambda: _algo_runs(trl.DQN(trl.DQNConfig(learning_starts=8, train_batch_size=8,
+                                                    updates_per_iteration=1, **SMALL),
+                                      device="cpu")),
+    "SAC": lambda: _algo_runs(trl.SAC(trl.SACConfig(learning_starts=8, train_batch_size=8,
+                                                    updates_per_iteration=1, **SMALL),
+                                      device="cpu")),
+    "PPOConfig.build": lambda: _algo_runs(trl.PPOConfig(num_env_runners=1, minibatch_size=8,
+                                                        **SMALL).build(device="cpu")),
+    "IMPALAConfig.build": lambda: _algo_runs(trl.IMPALAConfig(
+        num_env_runners=1, fragments_per_iteration=1, **SMALL).build(device="cpu")),
+    "DQNConfig.build": lambda: _algo_runs(trl.DQNConfig(
+        learning_starts=8, train_batch_size=8, updates_per_iteration=1, **SMALL).build(
+        device="cpu")),
+    "SACConfig.build": lambda: _algo_runs(trl.SACConfig(
+        learning_starts=8, train_batch_size=8, updates_per_iteration=1, **SMALL).build(
+        device="cpu")),
+    "SampleRunner": lambda: _runner_samples(
+        trl.SampleRunner.remote("CartPole-v1", (8,), 1), {"pi": _policy()["pi"]}, 16),
+    "EnvRunner": lambda: _runner_samples(tppo.EnvRunner.remote("CartPole-v1", (8,), 1),
+                                         _policy(), 16),
+    "MultiAgentPPO": lambda: _algo_runs(trl.MultiAgentPPO(
+        trl.MultiAgentPPOConfig(num_env_runners=1, minibatch_size=8, **SMALL)
+        .environment(trl.CoordinationGame), device="cpu")),
+    "MultiAgentPPOConfig": lambda: _algo_runs(
+        trl.MultiAgentPPOConfig(num_env_runners=1, minibatch_size=8, **SMALL)
+        .environment(lambda: trl.CoordinationGame(episode_len=4))
+        .multi_agent(policy_mapping_fn=lambda aid: "shared").build(device="cpu")),
+    "CoordinationGame": lambda: trl.CoordinationGame().step({"a0": 1, "a1": 1}),
+    "MultiAgentEnv": lambda: issubclass(trl.CoordinationGame, trl.MultiAgentEnv)
+    and trl.MultiAgentEnv.__module__ == "ray_tpu_torch.rllib.multi_agent",
+}
+
+
+@pytest.mark.parametrize("name", list(ITEM_8C_RUNS))
+def test_item_8c_names_run(local_mode, name):
+    """Every other name of item 8c runs: each algorithm (and its config's
+    build) takes a training iteration over runner actors in local mode,
+    each runner actor samples a fragment, the multi-agent env steps. The
+    algorithms are held against the JAX package's in
+    tests/test_torch_rllib_drivers*.py."""
+    assert ITEM_8C_RUNS[name]()
 
 
 @pytest.fixture
@@ -353,7 +421,8 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["PPOLearner", "IMPALALearner", "DQNLearner", "SACLearner",
-                                   "BC", "Anakin", "params_from_jax", "adam_state_from_jax"])
+                                   "BC", "Anakin", "params_from_jax", "adam_state_from_jax",
+                                   "PPO", "IMPALA", "DQN", "SAC", "MultiAgentPPO"])
 def test_device_none_needs_cuda(no_cuda, entry, tmp_path):
     path = trl.collect_offline_data("CartPole-v1", _expert, str(tmp_path / "d"),
                                     num_episodes=1)
@@ -366,6 +435,13 @@ def test_device_none_needs_cuda(no_cuda, entry, tmp_path):
         "Anakin": lambda: trl.AnakinConfig().build(),
         "params_from_jax": lambda: params_from_jax({"w": np.zeros(2)}),
         "adam_state_from_jax": lambda: adam_state_from_jax(optax.adam(1e-3).init({})),
+        # the algorithms raise before they make a runner: no runtime needed
+        "PPO": lambda: trl.PPOConfig().build(),
+        "IMPALA": lambda: trl.IMPALAConfig().build(),
+        "DQN": lambda: trl.DQNConfig().build(),
+        "SAC": lambda: trl.SACConfig().build(),
+        "MultiAgentPPO": lambda: trl.MultiAgentPPOConfig().environment(
+            trl.CoordinationGame).build(),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

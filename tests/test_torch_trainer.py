@@ -7,9 +7,11 @@ whose resumed losses equal an uninterrupted fit's bit for bit.
 
 ``debug`` in fp32; both loops start from JAX's init (the port's through
 state_from_jax) on the same tokens. Losses within 2e-5 of JAX's
-(tests/test_ops.py's fp32 tolerance). What needs the actor runtime (a
-worker group of several, elastic sizing) raises in the port, naming its
-ROADMAP row.
+(tests/test_ops.py's fp32 tolerance). Elastic sizing against JAX's on
+the same cluster totals, and a worker group of several ``TrainWorker``
+actors in the port's local mode; the groups on the port's cluster (a
+process group across worker processes) are
+tests/test_torch_worker_group*.py's.
 """
 
 import contextlib
@@ -257,23 +259,50 @@ def test_state_checkpoint_every_step_resumes_bit_for_bit(model, fits, tmp_path):
     assert int(last["step"]) == STEPS and int(last["opt_state"]["count"]) == STEPS
 
 
-def test_decide_num_workers():
+def test_decide_num_workers(monkeypatch):
+    """tests/test_models_train.py::test_elastic_decision_function's
+    configs; the elastic one sized against the same 3-CPU totals."""
     fixed = (JScalingConfig(num_workers=5), ttrain.ScalingConfig(num_workers=5))
     assert not fixed[1].elastic and jdecide(fixed[0]) == tdecide(fixed[1]) == 5
     el = ttrain.ScalingConfig(num_workers=5, min_workers=2)
-    assert el.elastic and JScalingConfig(num_workers=5, min_workers=2).elastic
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdecide(el)
+    jel = JScalingConfig(num_workers=5, min_workers=2)
+    assert el.elastic and jel.elastic
+    import ray_tpu
+    import ray_tpu_torch
+
+    for pkg in (ray_tpu, ray_tpu_torch):
+        monkeypatch.setattr(pkg, "cluster_resources", lambda: {"CPU": 3.0})
+    assert jdecide(jel) == tdecide(el) == 3
+
+
+@pytest.fixture
+def local_mode():
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(local_mode=True)
+    yield ray_tpu_torch.cluster_resources()
+    ray_tpu_torch.shutdown()
 
 
 @pytest.mark.parametrize("scaling", [{"num_workers": 2}, {"num_workers": 8, "min_workers": 1}])
-def test_worker_groups_raise_naming_the_row(tmp_path, scaling):
-    trainer = ttrain.TorchTrainer(
-        lambda config: ttrain.report({"x": 1}), train_loop_config={},
+def test_worker_groups_run_in_local_mode(tmp_path, local_mode, scaling):
+    """A group of several runs its loop in TrainWorker actors (threads in
+    local mode; no process group without use_gpu, as JAX's CPU workers),
+    each with its rank; an elastic group sized to the node's CPUs."""
+    seen = []
+
+    def loop(config):
+        ctx = ttrain.get_context()
+        seen.append((ctx.get_world_rank(), ctx.get_world_size()))
+        ttrain.report({"rank": ctx.get_world_rank(), "world": ctx.get_world_size()})
+
+    res = ttrain.TorchTrainer(
+        loop, train_loop_config={},
         scaling_config=ttrain.ScalingConfig(**scaling),
-        run_config=ttrain.RunConfig(name="t4", storage_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*actor runtime"):
-        trainer.fit()
+        run_config=ttrain.RunConfig(name="t4", storage_path=str(tmp_path))).fit()
+    n = min(8, int(local_mode["CPU"])) if "min_workers" in scaling else 2
+    assert res.error is None and res.metrics == {"rank": 0, "world": n}
+    assert sorted(seen) == [(r, n) for r in range(n)]
 
 
 def test_scaling_config_names_the_card():

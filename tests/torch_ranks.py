@@ -1,6 +1,10 @@
 """The ranks of the port's multi-rank tests (tests/test_torch_sharded_step*.py,
 tests/test_torch_pipeline*.py, tests/test_torch_ring_attention.py,
-tests/test_torch_collective.py, tests/test_torch_checkpoint_mesh.py).
+tests/test_torch_collective.py, tests/test_torch_checkpoint_mesh.py), and
+the loops and actors of its worker-group tests
+(tests/test_torch_worker_group.py: ``group_train``, ``group_resume``,
+``CollectiveMember``), which run in the worker processes of the port's
+cluster.
 
 ``World`` spawns one group of gloo ranks on the CPU, brought up over a
 FileStore in a temporary directory (no TCP port) or, when the cases
@@ -415,7 +419,8 @@ def collectives(seed):
                        ("too_big", lambda: col.init_collective_group(world + 1, rank, "gloo", "c")),
                        ("twice", lambda: col.init_collective_group(world, rank, "gloo", "a")),
                        ("objstore", lambda: col.init_collective_group(world, rank, "objstore", "c")),
-                       ("actors", lambda: col.create_collective_group([], world, [])),
+                       ("actors", lambda: col.create_collective_group([], world, [],
+                                                                      "objstore", "c")),
                        ("reducescatter_shape", lambda: col.reducescatter(x[:3], "a"))):
         try:
             call()
@@ -482,3 +487,109 @@ def _get(tree, path):
 
 def _shapes(tree):
     return {p: tuple(t.shape) for p, t in _items(tree)}
+
+
+# ---------------------------------------------------------------------------
+# Worker groups on the port's cluster (tests/test_torch_worker_group.py)
+# ---------------------------------------------------------------------------
+def _dump(directory, name, obj):
+    path = os.path.join(directory, f"{name}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def group_train(config):
+    """TorchTrainer's loop in each TrainWorker of a group: ``train``'s case
+    ``config["case"]`` at this worker's rank, with what the worker saw
+    (its context's rank and world size, the process group's backend,
+    rank and size, its CUDA_VISIBLE_DEVICES, the forbidden modules it
+    imported), written to ``config["out"]/rank{r}.pkl``; rank 0's last
+    loss reported."""
+    torch.set_num_threads(1)
+    ctx = S.get_context()
+    out = train(**config["case"])
+    out["seen"] = {"rank": ctx.get_world_rank(), "world": ctx.get_world_size(),
+                   "backend": dist.get_backend(), "dist": (dist.get_rank(), dist.get_world_size()),
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "jax_imported": sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)}
+    _dump(config["out"], f"rank{ctx.get_world_rank()}", out)
+    S.report({"loss": out["metrics"][-1]["loss"], "rank": ctx.get_world_rank()})
+
+
+def state_np(tree):
+    """A train state's leaves as numpy copies, by path."""
+    return {p: t.detach().numpy().copy() for p, t in _items(tree)}
+
+
+def group_resume(config):
+    """A loop over the group's data mesh that saves the train state after
+    every step (every rank calls save_state; rank 0 reports the
+    checkpoint) and, on the first attempt only, raises on rank
+    ``config["fail_rank"]`` after step ``config["fail_after"]``'s save; a
+    retry restores the latest checkpoint. Each rank records each attempt
+    (the first step it ran, its losses, the state it started from and
+    each state it saved, as numpy) in
+    ``config["out"]/rank{r}_attempt{a}.pkl``."""
+    torch.set_num_threads(2)
+    torch.use_deterministic_algorithms(True)  # the CPU embedding backward
+    ctx = S.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    cfg = _cfg(config["preset"], {})
+    mesh = build_mesh(MeshSpec(data=world), "cpu")
+    opt = S.default_optimizer(cfg, lr=LR)
+    sh = S.state_shardings(cfg, opt, mesh)
+    ck = S.get_checkpoint()
+    st = (state_from_jax(config["state"], cfg, mesh=mesh) if ck is None
+          else S.restore_state(os.path.join(ck.path, "state"), None, sh, mesh=mesh))
+    run = S.make_train_step(cfg, opt, mesh)
+    data = batch(config["tokens"])
+    rec = {"start": int(st["step"]), "restored_from": ck.path if ck else None,
+           "start_state": state_np(st), "losses": [], "saved": []}
+    attempt = 0 if ck is None else 1
+    marker = os.path.join(config["out"], "failed_once")
+    try:
+        for i in range(int(st["step"]), config["steps"]):
+            st, m = run(st, data)
+            rec["losses"].append(float(m["loss"]))
+            d = os.path.join(config["out"], f"step{i}")
+            S.save_state(st, os.path.join(d, "state"), shardings=sh, mesh=mesh)
+            rec["saved"].append(state_np(st))
+            S.report({"loss": rec["losses"][-1], "step": i},
+                     checkpoint=S.Checkpoint(d) if rank == 0 else None)
+            if i == config["fail_after"] and rank == config["fail_rank"] \
+                    and not os.path.exists(marker):
+                open(marker, "w").close()
+                raise RuntimeError(f"rank {rank} preempted after step {i}")
+    finally:
+        _dump(config["out"], f"rank{rank}_attempt{attempt}", rec)
+
+
+class CollectiveMember:
+    """An actor of ``create_collective_group``'s tests: its rank's
+    ``collective_input`` through every op of ray_tpu_torch.util.collective
+    on the group it was made a member of."""
+
+    def ops(self, group, seed):
+        from ray_tpu_torch.util import collective as col
+
+        rank, world = col.get_rank(group), col.get_collective_group_size(group)
+        x = collective_input(seed, rank)
+        out = {"rank": rank, "world": world, "pid": os.getpid(),
+               "backend": dist.get_backend()}
+        for op in ("sum", "product", "max", "min", "mean"):
+            out[("allreduce", op)] = col.allreduce(x, group, op).numpy()
+            out[("reducescatter", op)] = col.reducescatter(x, group, op).numpy()
+        out["allgather"] = col.allgather(x, group).numpy()
+        out["broadcast"] = col.broadcast(x, world - 1, group).numpy()
+        nxt, prv = (rank + 1) % world, (rank - 1) % world
+        if rank % 2 == 0:
+            col.send(x[rank], nxt, group)
+            out["recv"] = col.recv(prv, group).numpy()
+        else:
+            out["recv"] = col.recv(prv, group).numpy()
+            col.send(x[rank], nxt, group)
+        col.barrier(group)
+        col.destroy_collective_group(group)
+        out["destroyed"] = col.is_group_initialized(group)
+        return out
