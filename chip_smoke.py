@@ -36,6 +36,18 @@ before it and read just after:
   bit-equal to the driver's own calls, 1 / 1 / 1 launches; µs per actor
   call, ms per 64 MB CUDA put and its get in a worker; after shutdown
   the card's memory back within 1 GiB and no process of the cluster left;
+- Serve on the cluster runtime, in a fresh init(): ray_tpu_torch.llm.
+  serve_llm deploys llama3_8b (the serving LLMConfig, its weights drawn
+  in the replica) on a replica leasing the card through
+  resources={"GPU": 1}, with continuous batching: the 8 prompts through
+  the handle at once, cold and warm (tokens bit-identical to the direct
+  continuous round's, wall against it), µs a handle call, status(); the
+  same 8 as concurrent POSTs through the HTTP proxy and one prompt
+  streamed as a chunked response (TTFT over HTTP); then the same config
+  with @serve.batch in place of continuous batching (8 concurrent calls,
+  batch sizes, tokens bit-identical to LLMEngine's batch of the 8); the
+  flash launches counted in the replica's process (32 a prefill call);
+  after shutdown the card's memory back and no process left;
 - paged serving: the same model and prompts through
   ray_tpu_torch.models.paged_kv.PagedBatcher (tokens held equal to the
   slot-dense batcher's), 8 requests over a shared 1,024-token prefix
@@ -536,19 +548,24 @@ def runtime_local(cfg, config, params, ids4, prompts8, direct, smi) -> dict:
     with phase("runtime_direct_round"):
         # the 8 prompts again through the direct engine already built, the
         # yardstick of the actor's round (uncounted: before the reset)
-        cstats = direct["cengine"].batcher.stats
+        # ContinuousLLMEngine.submit's own steps (its batcher's tokens, then
+        # decode), kept apart so the round records the tokens as well
+        cengine = direct["cengine"]
+        cstats = cengine.batcher.stats
         out_before = cstats["tokens_out"]
+        sampling = cengine._with_eos(config.sampling)
         t0 = time.perf_counter()
-        futs = [direct["cengine"].submit(p) for p in prompts8]
-        direct_texts = [f.result(timeout=600) for f in futs]
+        futs = [cengine.batcher.submit(cengine._ids(p), sampling) for p in prompts8]
+        direct_tokens = [f.result(timeout=600) for f in futs]
+        direct_texts = [cengine.tokenizer.decode(t) for t in direct_tokens]
         direct_s = time.perf_counter() - t0
         direct_tokens_out = cstats["tokens_out"] - out_before
         emit({"direct_continuous_s": direct_s, "tokens_out": direct_tokens_out,
               "texts_equal_first_round": direct_texts == direct["texts"]})
         if direct_texts != direct["texts"]:
             raise AssertionError("the direct engine's second round gave other texts")
-        # runtime_cluster's yardstick too
-        direct.update(round_s=direct_s, tokens_out=direct_tokens_out)
+        # runtime_cluster's and the Serve phases' yardstick too
+        direct.update(round_s=direct_s, tokens_out=direct_tokens_out, tokens8=direct_tokens)
 
     reset_launches(A)
     with phase("runtime_local"):
@@ -974,15 +991,241 @@ def runtime_cluster(record, smi) -> dict:
     return launches
 
 
+SERVE_CALLS = 300  # handle calls on a trivial method timed in serve_llm (median)
+SERVE_BATCH_WAIT_S = 1.0  # serve_batch's window: its 8 concurrent calls make one batch
+
+
+def ids_of(text: str) -> list:
+    """IdsTokenizer's text back to the token ids."""
+    return [int(t) for t in text.split()]
+
+
+def post_json(port: int, path: str, payload, timeout: float = 900):
+    """(status, JSON body) of one POST to the Serve HTTP proxy."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def stream_over_http(port: int, path: str, payload) -> dict:
+    """POST to a streaming method: the chunked response's JSON lines, the
+    seconds to the first one (TTFT over HTTP) and to the end."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        lines, first_s = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.strip():
+                first_s = first_s if first_s is not None else time.perf_counter() - t0
+                lines.append(json.loads(line))
+        return {"status": resp.status, "lines": lines, "ttft_s": first_s,
+                "total_s": time.perf_counter() - t0}
+    finally:
+        conn.close()
+
+
+def serve_phases(record, smi) -> dict:
+    """Serve on the cluster runtime, in a fresh ray_tpu_torch.init():
+    serve_llm deploys llama3_8b (the serving phases' LLMConfig, seed-0
+    weights drawn in the replica, IdsTokenizer so a text carries its
+    tokens) on a replica that leases the card through resources={"GPU":
+    1}. serve_llm: seconds to a live handle, the 8 prompts through the
+    handle at once twice (cold, warm), tokens bit-identical to the direct
+    continuous round's and texts (decoded by ByteTokenizer) to its texts,
+    µs a handle call, status(). serve_http: the same 8 as concurrent POSTs
+    through the HTTP proxy, and one prompt streamed as a chunked response
+    (TTFT over HTTP; its deltas join to that prompt's text). serve_batch:
+    the deployment deleted, the same config with continuous_batching=False
+    (one @serve.batch window): 8 concurrent calls in batches of at most
+    batch_max_size, tokens bit-identical to LLMEngine's batch of the 8
+    (engine_batch8). Each path's launches are the replica's process's own
+    counts (replica_stats), from 0 in a fresh replica or from the reading
+    before; the driver launches none. After serve.shutdown() and
+    shutdown() the card's memory is back and no process is left. Returns
+    each path's launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import ByteTokenizer, serve_llm
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    cfg = T.config(record["config"].model)
+    prompts8 = record["prompts8"]
+    config = dataclasses.replace(record["config"], tokenizer=IdsTokenizer(), name="llama3_8b",
+                                 resources={"GPU": 1})
+    zero = {name: 0 for name in COUNTERS}
+    out = {}
+
+    def launches_of(handle) -> dict:
+        return handle.replica_stats.remote().result(timeout=120)["kernel_launches"]
+
+    def check_tokens(where, texts, want):
+        tokens = [ids_of(t) for t in texts]
+        row = {"where": where, "tokens_equal_record": tokens == want,
+               "completion_tokens": [len(t) for t in tokens]}
+        if want is record["tokens8"]:
+            row["texts_equal_record"] = \
+                [ByteTokenizer().decode(t) for t in tokens] == record["texts"]
+        emit(row)
+        if not (row["tokens_equal_record"] and row.get("texts_equal_record", True)):
+            raise AssertionError(f"{where}: {row}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    used_before = total - free
+    reset_launches(A)  # the driver's own counts: they must stay 0
+    rt.init(num_cpus=4)
+    try:
+        with phase("serve_llm"):
+            t0 = time.perf_counter()
+            handle = serve_llm(config)
+            live_s = time.perf_counter() - t0
+            facts = handle.replica_stats.remote().result(timeout=120)
+            snap = rt.get(serve.controller._controller().get_deployment.remote(config.name),
+                          timeout=60)
+            status = serve.status()
+            emit({"serve_llm_live_s": live_s, "replica": facts, "status": status,
+                  "replicas": len(snap["replicas"]), "driver_pid": os.getpid(), "card": smi})
+            if facts["visible_devices"] != "0" or facts["gpu_ids"] != [0] or \
+                    facts["device"] != "cuda" or facts["pid"] == os.getpid() or \
+                    facts["kernel_launches"] != zero or \
+                    status != {"deployments": [config.name]} or len(snap["replicas"]) != 1:
+                raise AssertionError(f"serve_llm's replica: {facts}, {status}, "
+                                     f"{len(snap['replicas'])} replicas")
+            # ---- the main path: the replica's counts from 0 (a fresh
+            # process), read right after ---------------------------------
+            rounds = []
+            for label in ("cold", "warm"):
+                t1 = time.perf_counter()
+                texts = [r.result(timeout=900) for r in [handle.remote(p) for p in prompts8]]
+                rounds.append(time.perf_counter() - t1)
+                emit({"serve_handle_round": label, "s": rounds[-1],
+                      "direct_round_s": record["round_s"],
+                      "handle_over_direct": rounds[-1] / record["round_s"], "card": smi})
+                check_tokens(f"serve_llm {label}", texts, record["tokens8"])
+            stats = handle.engine_stats.remote().result(timeout=60)
+            launches = launches_of(handle)
+            # ---- end of the main path ------------------------------------
+            emit({"serve_llm_launches": launches, "engine_stats": stats})
+            if launches != {**zero, "flash_fwd": cfg.layers * stats["admitted"]} or \
+                    stats["admitted"] != 2 * len(prompts8) or stats["cancelled"] != 0:
+                raise AssertionError(f"serve_llm launched {launches}, stats {stats}")
+            out["serve_llm"] = launches
+            call_us = median_host_us(lambda: handle.engine_stats.remote().result(timeout=60),
+                                     SERVE_CALLS)
+            emit({"serve_handle_call_us": call_us, "calls": SERVE_CALLS,
+                  "method": "engine_stats", "clock": "host, median", "card": smi})
+
+        with phase("serve_http"):
+            port = serve.start_http_proxy(port=0)
+            before = launches_of(handle)
+            from concurrent.futures import ThreadPoolExecutor
+
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(len(prompts8)) as pool:
+                replies = list(pool.map(lambda p: post_json(port, f"/{config.name}", p),
+                                        prompts8))
+            http_s = time.perf_counter() - t1
+            emit({"serve_http_s": http_s, "handle_warm_s": rounds[1],
+                  "http_over_handle": http_s / rounds[1], "statuses": [r[0] for r in replies],
+                  "card": smi})
+            if any(r[0] != 200 for r in replies):
+                raise AssertionError(f"HTTP statuses {[r[0] for r in replies]}")
+            texts = [r[1]["result"] for r in replies]
+            check_tokens("serve_http", texts, record["tokens8"])
+            streamed = stream_over_http(port, f"/{config.name}/generate_stream", prompts8[0])
+            deltas = streamed["lines"]
+            launches = {k: v - before[k] for k, v in launches_of(handle).items()}
+            proxy = serve.http_proxy_stats()
+            emit({"serve_http_stream_ttft_s": streamed["ttft_s"],
+                  "stream_total_s": streamed["total_s"], "deltas": len(deltas),
+                  "stream_status": streamed["status"],
+                  "deltas_join_to_text": "".join(deltas) == texts[0],
+                  "serve_http_launches": launches, "proxy_stats": proxy, "card": smi})
+            if streamed["status"] != 200 or "".join(deltas) != texts[0] or \
+                    len(deltas) != len(ids_of(texts[0])) or \
+                    launches != {**zero, "flash_fwd": cfg.layers * (len(prompts8) + 1)} or \
+                    proxy["ok"] != len(prompts8) + 1:
+                raise AssertionError(f"serve_http: stream {streamed}, launches {launches}, "
+                                     f"proxy {proxy}")
+            out["serve_http"] = launches
+
+        with phase("serve_batch"):
+            serve.delete(config.name)
+            bconfig = dataclasses.replace(config, name="llama3_8b_batch",
+                                          continuous_batching=False,
+                                          batch_wait_timeout_s=SERVE_BATCH_WAIT_S)
+            t0 = time.perf_counter()
+            bhandle = serve_llm(bconfig)
+            live_s = time.perf_counter() - t0
+            facts = bhandle.replica_stats.remote().result(timeout=120)
+            if facts["kernel_launches"] != zero or facts["visible_devices"] != "0":
+                raise AssertionError(f"serve_batch's replica: {facts}")
+            # ---- the main path: a fresh replica's counts from 0 ----------
+            t1 = time.perf_counter()
+            texts = [r.result(timeout=900) for r in [bhandle.remote(p) for p in prompts8]]
+            batch_s = time.perf_counter() - t1
+            facts = bhandle.replica_stats.remote().result(timeout=120)
+            launches, sizes = facts["kernel_launches"], facts["batch_sizes"]
+            # ---- end of the main path ------------------------------------
+            emit({"serve_batch_live_s": live_s, "serve_batch_s": batch_s,
+                  "batch_sizes": sizes, "batch_max_size": bconfig.batch_max_size,
+                  "serve_batch_launches": launches, "card": smi})
+            if sum(sizes) != len(prompts8) or max(sizes) > bconfig.batch_max_size or \
+                    launches != {**zero, "flash_fwd": cfg.layers * len(sizes)}:
+                raise AssertionError(f"serve_batch: sizes {sizes}, launches {launches}")
+            check_tokens("serve_batch", texts, record["batch8"])
+            out["serve_batch"] = launches
+        driver = read_launches(A)
+        if driver != zero:
+            raise AssertionError(f"the driver launched {driver} during the Serve phases")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    with phase("serve_shutdown"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + 30
+        while True:  # a killed replica's memory returns to the card a moment later
+            free, total = torch.cuda.mem_get_info()
+            left = (total - free) - used_before
+            if left <= CLUSTER_LEFT_BYTES or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        alive = cluster_processes()
+        emit({"card_used_before": used_before, "card_used_after": total - free,
+              "left_bytes": left, "pgrep": alive})
+        if left > CLUSTER_LEFT_BYTES or alive:
+            raise AssertionError(f"after serve.shutdown() and shutdown(): {left} bytes more "
+                                 f"in use on the card, processes left: {alive!r}")
+    return out
+
+
 def serving_phases(kernels, smi) -> tuple:
     """The serving path: serve llama3_8b at full width through LLMEngine and
     ContinuousLLMEngine (launches counted from 0 around it), then through
     the actor runtime in local mode (runtime_local) and paged KV, then time
     prefill and decode and hold the kernel prefill against the plain
     formulation. Returns the serving, paged and runtime paths' launches and
-    the record runtime_cluster holds its actor to (the LLMConfig, the
-    prompts, the direct engines' tokens and texts, the direct round's
-    wall); everything it allocates is freed on return."""
+    the record runtime_cluster and serve_phases hold their actor and
+    replicas to (the LLMConfig, the prompts, the direct engines' tokens and
+    texts, the direct round's wall and tokens, LLMEngine's batch of the 8);
+    everything it allocates is freed on return."""
     from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models import transformer as T
     from ray_tpu_torch.models.decoding import forward_cached, init_cache
@@ -1066,11 +1309,20 @@ def serving_phases(kernels, smi) -> tuple:
             if streamed != ref:
                 raise AssertionError(f"generate_stream {streamed} != generate {ref}")
 
+        with phase("engine_batch8"):
+            # the 8 prompts as one LLMEngine batch, stop token included as
+            # LLMEngine.generate sets it: serve_batch's record
+            batch8 = engine.generate_tokens([tok.encode(p) for p in prompts8],
+                                            engine._with_eos(greedy))
+            emit({"batch8_completion_tokens": [len(t) for t in batch8]})
+
         direct = {"cengine": cengine, "tokens": outs, "texts": ctexts, "stream": streamed}
         runtime = runtime_local(cfg, config, params, ids4, prompts8, direct, smi)
-        # what runtime_cluster holds its actor to, once this engine is gone
-        record = {"config": config, "ids4": ids4, "prompts8": prompts8,
-                  **{k: direct[k] for k in ("tokens", "texts", "round_s", "tokens_out")}}
+        # what runtime_cluster and the Serve phases hold their replicas
+        # to, once this engine is gone
+        record = {"config": config, "ids4": ids4, "prompts8": prompts8, "batch8": batch8,
+                  **{k: direct[k] for k in ("tokens", "texts", "round_s", "tokens_out",
+                                            "tokens8")}}
 
         paged = paged_phases(cfg, params, [tok.encode(p) for p in prompts8], batcher, greedy)
 
@@ -3755,6 +4007,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
     cluster = runtime_cluster(record, smi)
+    served = serve_phases(record, smi)
     data_batch = data_llm_batch(smi)
 
     flash_bwd_vs_plain(kernels, smi)
@@ -3782,6 +4035,7 @@ def main() -> int:
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "runtime_local": runtime[name],
                                    "runtime_cluster": cluster[name],
+                                   **{path: served[path][name] for path in served},
                                    "paged_serving": paged[name],
                                    "data_llm_batch": data_batch[name],
                                    "train_step": train[name],

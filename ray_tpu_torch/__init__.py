@@ -16,9 +16,12 @@ rules and collectives of the sharded step, the multi-host bootstrap),
 DQN, SAC and BC learners in process, and Anakin: rollout, V-trace and
 Adam on the card, its envs split over a process group's ranks), ``data``
 (Datasets run in process, ``iter_torch_batches`` feeding the train step,
-and ``llm.build_llm_processor``'s batch inference over them) and
-``tune`` (Tuner trials as local-mode actors, its searchers and
-schedulers).
+and ``llm.build_llm_processor``'s batch inference over them), ``tune``
+(Tuner trials as local-mode actors, its searchers and schedulers) and
+``serve`` (deployments, the controller and replica actors, @serve.batch,
+deadlines and shedding, multiplexing, the HTTP proxy and local testing
+mode; ``llm.serve_llm`` serves an engine from a replica on a leased
+card).
 
 The runtime's public API is ``ray_tpu``'s (reference:
 python/ray/__init__.py): ``init, shutdown, remote, get, put, wait, kill,

@@ -39,8 +39,15 @@ class LLMConfig:
     tokenizer: Any = None  # encode/decode object; default ByteTokenizer
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     seed: int = 0
-    # slots of ContinuousLLMEngine's fixed-slot KV cache (the Serve
-    # deployment settings of the JAX package come with the Serve port)
+    # serve-side deployment settings
+    name: str = "llm"
+    num_replicas: int = 1
+    batch_max_size: int = 8
+    batch_wait_timeout_s: float = 0.05
+    resources: Optional[dict] = None  # e.g. {"GPU": 1}: the replica leases a card
+    # iteration-level scheduling over a fixed-slot KV cache (vLLM-style);
+    # False falls back to @serve.batch whole-batch generation
+    continuous_batching: bool = True
     cache_slots: int = 8
 
     def get_tokenizer(self):

@@ -111,7 +111,8 @@ class ContinuousLLMEngine(LLMEngine):
     def submit(self, prompt: Union[str, Sequence[int]],
                sampling: Optional[SamplingParams] = None) -> Future:
         """Thread-safe; returns a Future resolving to the completion
-        TEXT."""
+        TEXT. Cancelling it cancels the request: its KV slot frees at
+        the batcher's next step."""
         tok = self.tokenizer
         sampling = self._with_eos(sampling or self.config.sampling)
         inner = self.batcher.submit(self._ids(prompt), sampling)
@@ -120,6 +121,8 @@ class ContinuousLLMEngine(LLMEngine):
         def _chain(f):
             # concurrent.futures swallows callback exceptions: a decode
             # failure must still resolve `out` or the caller hangs
+            if out.done():  # cancelled by its caller
+                return
             try:
                 exc = f.exception()
                 if exc is not None:
@@ -131,6 +134,7 @@ class ContinuousLLMEngine(LLMEngine):
                     out.set_exception(e)
 
         inner.add_done_callback(_chain)
+        out.add_done_callback(lambda f: f.cancelled() and inner.cancel())
         return out
 
     def submit_stream(self, prompt: Union[str, Sequence[int]],

@@ -15,7 +15,10 @@ ray_tpu/models/continuous_batching.py).
 
 ``ContinuousBatcher.submit()`` is thread-safe and returns a Future; a
 daemon pump thread (``cb-pump``) runs steps while any request is active
-or waiting.
+or waiting. A request whose Future is cancelled, or whose stream's
+consumer closes it, gives its slot back at the next step (a caller past
+its deadline holds no slot; the JAX package's batcher runs such a
+request to its end).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import dataclasses
 import logging
 import queue
 import threading
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -65,6 +68,24 @@ class _Request:
     stream_q: Optional[queue.Queue]  # token stream, None-terminated
     out: List[int] = dataclasses.field(default_factory=list)
     slot: int = -1
+    closed: bool = False  # the stream's consumer went away
+
+    def cancelled(self) -> bool:
+        return self.closed or (self.future is not None and self.future.cancelled())
+
+
+def _resolve(fut: Optional[Future], result=None, exc=None) -> None:
+    """Settle ``fut`` unless it is already done: a caller may cancel it at
+    any moment, and a set on a cancelled Future raises in the pump."""
+    if fut is None or fut.done():
+        return
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+    except InvalidStateError:
+        pass
 
 
 class ContinuousBatcher:
@@ -94,7 +115,7 @@ class ContinuousBatcher:
         # stats (observable by tests/metrics)
         self.stats = {"admitted": 0, "finished": 0, "steps": 0,
                       "max_active": 0, "tokens_out": 0,
-                      "last_admit_step": -1}
+                      "last_admit_step": -1, "cancelled": 0}
         self._thread = threading.Thread(
             target=self._pump, daemon=True, name="cb-pump")
         self._thread.start()
@@ -124,11 +145,14 @@ class ContinuousBatcher:
         self._check_len(req)
         self._waiting.put(req)
         self._wake.set()
-        while True:
-            t = q.get()
-            if t is None:
-                return
-            yield t
+        try:
+            while True:
+                t = q.get()
+                if t is None:
+                    return
+                yield t
+        finally:
+            req.closed = True  # a no-op once the request has retired
 
     def shutdown(self) -> None:
         self._shutdown = True
@@ -144,8 +168,7 @@ class ContinuousBatcher:
             except queue.Empty:
                 break
         for req in leftovers:
-            if req.future is not None and not req.future.done():
-                req.future.set_exception(err)
+            _resolve(req.future, exc=err)
             if req.stream_q is not None:
                 req.stream_q.put(None)
 
@@ -204,6 +227,9 @@ class ContinuousBatcher:
                 req = self._waiting.get_nowait()
             except queue.Empty:
                 break
+            if req.cancelled():
+                self.stats["cancelled"] += 1
+                continue
             slot = self._free.pop()
             try:
                 self._admit_one(req, slot)
@@ -211,8 +237,7 @@ class ContinuousBatcher:
                 # the slot goes back and THIS request fails; others and
                 # the pump survive
                 self._free.append(slot)
-                if req.future is not None and not req.future.done():
-                    req.future.set_exception(e)
+                _resolve(req.future, exc=e)
                 if req.stream_q is not None:
                     req.stream_q.put(None)
                 continue
@@ -270,8 +295,7 @@ class ContinuousBatcher:
     def _retire(self, req: _Request) -> None:
         self._retire_silent(req)
         self.stats["finished"] += 1
-        if req.future is not None and not req.future.done():
-            req.future.set_result(list(req.out))
+        _resolve(req.future, list(req.out))
         if req.stream_q is not None:
             req.stream_q.put(None)
 
@@ -285,8 +309,7 @@ class ContinuousBatcher:
                 self._step()
             except Exception as e:  # noqa: BLE001 — fail active requests
                 for req in list(self._active.values()):
-                    if req.future is not None and not req.future.done():
-                        req.future.set_exception(e)
+                    _resolve(req.future, exc=e)
                     if req.stream_q is not None:
                         req.stream_q.put(None)
                     self._retire_silent(req)
@@ -300,6 +323,9 @@ class ContinuousBatcher:
             req.slot = -1
 
     def _step(self) -> None:
+        for req in [r for r in self._active.values() if r.cancelled()]:
+            self._retire_silent(req)
+            self.stats["cancelled"] += 1
         self._admit()
         if not self._active:
             return

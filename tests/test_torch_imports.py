@@ -214,3 +214,39 @@ def test_chip_cards_refuses_without_four_cards(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 1 and "needs 4 cards" in out.stderr
     assert '"ok": true' not in out.stdout
+
+
+def test_serve_imports_no_jax_and_no_ray_tpu():
+    """Serve and the LLM deployment import neither JAX nor the JAX package
+    (nor torch: a replica of a plain deployment never loads it)."""
+    code = ("import sys, ray_tpu_torch.serve, ray_tpu_torch.serve.slo, "
+            "ray_tpu_torch.serve.batching, ray_tpu_torch.serve.multiplex, "
+            "ray_tpu_torch.serve.deployment, ray_tpu_torch.serve.controller, "
+            "ray_tpu_torch.serve.local_mode, ray_tpu_torch.serve.http_proxy; "
+            "torch_free = 'torch' not in sys.modules; "
+            "import ray_tpu_torch.llm.serving; "
+            "print(torch_free, sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu', "
+            "'psutil', 'cloudpickle', 'grpc')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd="/", env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "True []"
+
+
+def test_serve_exports_the_jax_packages_names():
+    import ray_tpu.serve
+    import ray_tpu_torch.serve
+
+    assert ray_tpu_torch.serve.__all__ == ray_tpu.serve.__all__
+    assert all(hasattr(ray_tpu_torch.serve, name) for name in ray_tpu_torch.serve.__all__)
+
+
+@pytest.mark.parametrize("name", ["start_grpc_proxy", "grpc_proxy_stats", "stop_grpc_proxy"])
+def test_grpc_ingress_raises_naming_its_roadmap_row(name):
+    from ray_tpu_torch import serve
+
+    assert serve.GRPC_INGRESS_ROW == "ROADMAP.md Queue A, 'Serve's gRPC ingress'"
+    assert "Serve's gRPC ingress" in (ROOT / "ROADMAP.md").read_text()
+    with pytest.raises(NotImplementedError, match=serve.GRPC_INGRESS_ROW):
+        getattr(serve, name)(port=0) if name == "start_grpc_proxy" else getattr(serve, name)()
