@@ -33,7 +33,15 @@ worker, through CUDA_VISIBLE_DEVICES) and holds:
   step ms, tokens/s, MFU (6·N·tokens/s over 4 cards' peak), flash
   launches a step (64/32/32) and the NCCL device ms of a step, per rank;
   against one card's step in this process first (the same model, seed
-  and 8 rows).
+  and 8 rows);
+- disaggregated prefill on two cards: a STRICT_PACK placement group of
+  two {"GPU": 1} bundles, llama3_8b's prefill replica on one card and its
+  decode replica on another (DisaggPrefillEngine, each replica a worker
+  process drawing the seed-0 weights), the 8 serving prompts' fp32 KV
+  rows (536,870,912 B) crossing processes through the shared-memory
+  TensorChannel: tokens equal a single-process PagedBatcher's, no
+  prefill in the decode replica, 32 x 8 flash launches all in the
+  prefill replica's process; ms a row hand-off.
 
 Prints JSON lines and the cards' names and power limits; any failed gate
 raises and the script exits non-zero. Without 4 CUDA devices it exits 1
@@ -425,6 +433,104 @@ def collectives(rt, device, smi):
             raise AssertionError(f"collectives over 4 actors: {row}; misses {bad}")
 
 
+def _replica_launches(instance, reset=False):
+    """Run in a replica's process through ``__ray_call__``: its flash
+    launch counts (set to 0 first when ``reset``)."""
+    from ray_tpu_torch.ops import attention as A
+
+    if reset:
+        C.reset_launches(A)
+    return C.read_launches(A)
+
+
+def disagg_two_cards(rt, device, smi, preset="llama3_8b", max_len=C.MAX_LEN):
+    """Disaggregated prefill across two cards in cluster mode: a STRICT_PACK
+    placement group of two {"GPU": 1} bundles, DisaggPrefillEngine's
+    prefill replica in bundle 0 and its decode replica in bundle 1, each a
+    worker process leasing its card and drawing the seed-0 weights there;
+    the KV rows cross processes through the shared-memory TensorChannel.
+    The 8 serving prompts; gates: tokens equal a single-process
+    PagedBatcher's on this process's card (same weights and prompts),
+    the decode replica's prefill_tokens 0 and admitted 8, two distinct
+    cards, and on the card flash launches L x 8 in the prefill replica's
+    process and 0 in the decode replica's. Hand-off ms from the replicas'
+    timings."""
+    import functools
+
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.models.decoding import SamplingParams
+    from ray_tpu_torch.models.disagg_prefill import DisaggPrefillEngine
+    from ray_tpu_torch.models.paged_kv import PagedBatcher
+    from ray_tpu_torch.util import placement_group, remove_placement_group
+
+    cfg = T.config(preset, param_dtype=torch.bfloat16)
+    tok = LLMConfig(model=cfg).get_tokenizer()
+    # the serving prompts (100 to 1,500 bytes at max_len 2,048), scaled with max_len
+    lengths = (np.linspace(100, 1500, 8) * max_len / C.MAX_LEN).astype(int).tolist()
+    ids8 = [tok.encode(p) for p in C.prompt_texts(lengths, C.SEED + 1)]
+    greedy = SamplingParams(max_tokens=C.MAX_TOKENS)
+    with C.phase("disagg_prefill_two_cards"):
+        params = C.seeded_params(preset, C.SEED, device)
+        pb = PagedBatcher(cfg, params, max_len=max_len, slots=8, page_size=C.PAGE_SIZE,
+                          seed=C.SEED, device=device)
+        try:
+            t0 = time.perf_counter()
+            want = [f.result(timeout=600) for f in [pb.submit(i, greedy) for i in ids8]]
+            paged_s = time.perf_counter() - t0
+        finally:
+            pb.shutdown()
+        del pb, params
+        torch.cuda.empty_cache()
+        pg = placement_group([{"CPU": 1, "GPU": 1}, {"CPU": 1, "GPU": 1}], strategy="STRICT_PACK")
+        if not pg.ready(timeout=120):
+            raise AssertionError("the two-card placement group is not ready")
+        eng = None
+        try:
+            eng = DisaggPrefillEngine(cfg, functools.partial(C.seeded_params, preset, C.SEED,
+                                                              device),
+                                      max_len=max_len, slots=8, page_size=C.PAGE_SIZE,
+                                      num_cpus=1, num_gpus=1, device=device,
+                                      placement_group=pg)
+            replicas = (eng.prefiller, eng.decoder)
+            visible = rt.get([a.__ray_call__.remote(
+                lambda _: os.environ.get("CUDA_VISIBLE_DEVICES")) for a in replicas],
+                timeout=900)
+            rt.get([a.__ray_call__.remote(_replica_launches, True) for a in replicas],
+                   timeout=60)
+            t0 = time.perf_counter()
+            outs = [rt.get(r, timeout=900) for r in [eng.generate(i, greedy) for i in ids8]]
+            disagg_s = time.perf_counter() - t0
+            launches = rt.get([a.__ray_call__.remote(_replica_launches) for a in replicas],
+                              timeout=60)
+            stats = eng.stats()
+            pre = rt.get(eng.prefiller.timings.remote(), timeout=60)
+            dec = rt.get(eng.decoder.timings.remote(), timeout=60)
+        finally:
+            if eng is not None:
+                eng.shutdown()
+            remove_placement_group(pg)
+        handoff = [p["stage_ms"] + p["write_ms"] + d["read_ms"] + d["to_device_ms"]
+                   for p, d in zip(pre, dec)]
+        row = {"visible": visible, "tokens_equal_paged": outs == want, "stats": stats,
+               "prefill_launches": launches[0], "decode_launches": launches[1],
+               "disagg_s": disagg_s, "paged_s": paged_s, "disagg_over_paged": disagg_s / paged_s,
+               "handoff_ms_median": float(np.median(handoff)), "handoff_ms": handoff,
+               **{f"{k}_median": float(np.median([t[k] for t in pre]))
+                  for k in ("prefill_ms", "stage_ms", "write_ms")},
+               **{f"{k}_median": float(np.median([t[k] for t in dec]))
+                  for k in ("read_ms", "to_device_ms")},
+               "row_bytes": 2 * cfg.layers * max_len * cfg.kv_heads * cfg.hd * 4,
+               "clock": "host", "card": smi}
+        C.emit(row)
+        zero = {name: 0 for name in C.COUNTERS}
+        if outs != want or stats["prefill_tokens"] != 0 or stats["admitted"] != len(ids8) or \
+                len(set(visible)) != 2 or (device == "cuda" and (
+                    launches[0] != {**zero, "flash_fwd": cfg.layers * len(ids8)} or
+                    launches[1] != zero)):
+            raise AssertionError(f"disaggregated prefill on two cards: {row}")
+
+
 def one_card_step(device, smi, preset, rows, seq):
     """One card's step in this process: the model at full width (bf16,
     remat), ``rows`` rows, WARMUP + TIMED steps; its median ms and the
@@ -547,6 +653,7 @@ def main() -> int:
         collectives(rt, "cuda", smi)
         elastic_full_width(rt, S, out, "cuda", smi, "llama2_7b_lora", ROWS_A_RANK, C.MAX_LEN,
                            single)
+        disagg_two_cards(rt, "cuda", smi)
     finally:
         rt.shutdown()
         shutil.rmtree(out, ignore_errors=True)

@@ -48,6 +48,27 @@ before it and read just after:
   batch sizes, tokens bit-identical to LLMEngine's batch of the 8); the
   flash launches counted in the replica's process (32 a prefill call);
   after shutdown the card's memory back and no process left;
+- placement groups and the compiled DAG, in a fresh init(): a one-bundle
+  {"CPU": 1, "GPU": 1} group through ray_tpu_torch.util.placement_group
+  and through util.gpu.SlicePlacementGroup (seconds to ready), llama3_8b
+  in an actor placed in the slice's bundle (PlacementGroupSchedulingStrategy,
+  leasing the card), InputNode → actor.generate_ids.bind(inp) →
+  experimental_compile() on the channel path: the 8 prompts in one
+  execute(), tokens bit-identical to the direct continuous round's, the
+  flash launches counted in the actor's process and none in the driver;
+  µs per execute() of a trivial method beside the actor's .remote() call;
+  after teardown() and shutdown() the card's memory back, no process left;
+- the device tensor channel, in a fresh init(): a num_gpus=1 actor writes
+  llama3_8b's bf16 KV row [2, 32, 2048, 8, 128] (268 MB) through
+  ray_tpu_torch.experimental.rdt.DeviceTensorChannel and the driver reads
+  it onto its card (bit-equal, on the card): ms and GB/s a hand-off beside
+  64 MB and 268 MB CUDA puts through the object store;
+- disaggregated prefill in local mode on one card: the 8 prompts through
+  ray_tpu_torch.models.disagg_prefill.DisaggPrefillEngine, a prefill
+  replica and a decode replica joined by a shared-memory TensorChannel of
+  fp32 KV rows (536,870,912 B each): tokens equal a single-process
+  PagedBatcher's, no prefill in the decode replica, 32 x 8 flash launches,
+  all the prefill replica's; wall and TTFT against the paged round;
 - paged serving: the same model and prompts through
   ray_tpu_torch.models.paged_kv.PagedBatcher (tokens held equal to the
   slot-dense batcher's), 8 requests over a shared 1,024-token prefix
@@ -815,6 +836,27 @@ def cluster_processes() -> str:
                           text=True).stdout.strip()
 
 
+def card_back(used_before: int, what: str) -> None:
+    """After a cluster's shutdown: the card's used memory within
+    CLUSTER_LEFT_BYTES of ``used_before`` (a killed worker's memory comes
+    back a moment later) and no process of the cluster left."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    while True:
+        free, total = torch.cuda.mem_get_info()
+        left = (total - free) - used_before
+        if left <= CLUSTER_LEFT_BYTES or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    alive = cluster_processes()
+    emit({"card_used_before": used_before, "card_used_after": total - free,
+          "left_bytes": left, "pgrep": alive})
+    if left > CLUSTER_LEFT_BYTES or alive:
+        raise AssertionError(f"after {what}: {left} bytes more in use on the card, "
+                             f"processes left: {alive!r}")
+
+
 def runtime_cluster(record, smi) -> dict:
     """The actor runtime in cluster mode on one node: ray_tpu_torch.init()
     starts a GCS, a raylet, the shared-memory store and worker processes.
@@ -973,21 +1015,7 @@ def runtime_cluster(record, smi) -> dict:
             del x, x_host, refs, q, k, v, do
         finally:
             rt.shutdown()
-        gc.collect()
-        torch.cuda.empty_cache()
-        deadline = time.monotonic() + 30
-        while True:  # a killed worker's memory returns to the card a moment later
-            free, total = torch.cuda.mem_get_info()
-            left = (total - free) - used_before
-            if left <= CLUSTER_LEFT_BYTES or time.monotonic() > deadline:
-                break
-            time.sleep(0.5)
-        alive = cluster_processes()
-        emit({"card_used_before": used_before, "card_used_after": total - free,
-              "left_bytes": left, "pgrep": alive})
-        if left > CLUSTER_LEFT_BYTES or alive:
-            raise AssertionError(f"after shutdown: {left} bytes more in use on the card, "
-                                 f"processes left: {alive!r}")
+        card_back(used_before, "shutdown")
     return launches
 
 
@@ -1198,22 +1226,386 @@ def serve_phases(record, smi) -> dict:
         finally:
             rt.shutdown()
     with phase("serve_shutdown"):
+        card_back(used_before, "serve.shutdown() and shutdown()")
+    return out
+
+
+DAG_CALLS = 300  # execute() round trips and .remote() calls of a trivial method timed (median)
+ROW_SHAPE = (2, 32, MAX_LEN, 8, 128)  # llama3_8b's KV row: [k/v, L, max_len, kvH, D]
+ROW_HANDOFFS = 5  # timed DeviceTensorChannel hand-offs (median), after one warm-up
+STORE_PUTS = 5  # CUDA puts through the object store a size, got in a task (median)
+STORE_BYTES = (RUNTIME_PUT_BYTES, 2 * 2 ** 27)  # 64 MB and the bf16 row's 268 MB
+
+
+class DagLlama(ClusterLlama):
+    """placement_and_compiled_dag's engine actor: ClusterLlama's engines,
+    with the direct round's call (the 8 prompts through the continuous
+    batcher at once, stop token as ContinuousLLMEngine.submit sets it)
+    as one method a compiled DAG can run, and a trivial one to time."""
+
+    def generate_ids(self, prompts):
+        ce = self.cengine
+        sampling = ce._with_eos(ce.config.sampling)
+        futs = [ce.batcher.submit(ce._ids(p), sampling) for p in prompts]
+        return [f.result(timeout=600) for f in futs]
+
+    def echo(self, x):
+        return x
+
+
+def placement_and_compiled_dag(record, smi) -> dict:
+    """Placement groups and the compiled DAG on the cluster runtime, in a
+    fresh ray_tpu_torch.init(): a one-bundle {"CPU": 1, "GPU": 1} group
+    through util.placement_group (seconds to ready, then removed) and
+    through util.gpu.SlicePlacementGroup(gpus_per_host=1); DagLlama
+    (llama3_8b from the serving LLMConfig, seed-0 weights drawn in its
+    process) placed in the slice's bundle with
+    PlacementGroupSchedulingStrategy, leasing the card. InputNode →
+    actor.generate_ids.bind(inp) → experimental_compile(), on the
+    channel path (_channel_mode): the 8 prompts in one execute(), tokens
+    bit-identical to the direct continuous round's (record["tokens8"]),
+    flash launches counted in the actor's process (32 a prefill), none in
+    the driver. Then µs per execute() round trip of a trivial method
+    beside the same actor's .remote() call. After teardown() and
+    shutdown() the card's memory is back and no process is left. Returns
+    the path's launches (the actor's)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.util import (
+        PlacementGroupSchedulingStrategy, placement_group, placement_group_table,
+        remove_placement_group,
+    )
+    from ray_tpu_torch.util.gpu import SlicePlacementGroup
+
+    cfg = T.config(record["config"].model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    used_before = total - free
+    reset_launches(A)
+    with phase("placement_and_compiled_dag"):
+        rt.init(num_cpus=4)
+        try:
+            bundle = {"CPU": 1, "GPU": 1}
+            t0 = time.perf_counter()
+            pg = placement_group([bundle])
+            ready = pg.ready(timeout=120)
+            pg_ready_s = time.perf_counter() - t0
+            table = placement_group_table(pg)
+            remove_placement_group(pg)
+            t0 = time.perf_counter()
+            spg = SlicePlacementGroup(gpus_per_host=1)
+            slice_ready = spg.ready(timeout=120)
+            slice_ready_s = time.perf_counter() - t0
+            emit({"placement_group_ready_s": pg_ready_s, "slice_ready_s": slice_ready_s,
+                  "state": table["state"], "bundles": spg.placement_group.bundle_specs,
+                  "clock": "host", "card": smi})
+            if not (ready and slice_ready and table["state"] == "CREATED"):
+                raise AssertionError(f"placement groups not ready: {ready}, {slice_ready}, "
+                                     f"{table}")
+            strategy = PlacementGroupSchedulingStrategy(spg.placement_group, 0)
+            served = rt.remote(num_gpus=1, max_concurrency=8)(DagLlama).options(
+                scheduling_strategy=strategy).remote(record["config"])
+            facts = rt.get(served.worker_facts.remote(), timeout=900)
+            emit({"actor_worker": facts})
+            if facts["visible"] != "0" or facts["gpu_ids"] != [0] or \
+                    facts["pid"] == os.getpid():
+                raise AssertionError(f"the actor did not lease the bundle's card: {facts}")
+
+            with InputNode() as inp:
+                dag = served.generate_ids.bind(inp)
+            compiled = dag.experimental_compile()
+            try:
+                emit({"channel_mode": compiled._channel_mode})
+                if not compiled._channel_mode:
+                    raise AssertionError("the compiled DAG fell back to the task path")
+                rt.get(served.reset_launches.remote(), timeout=60)
+                t0 = time.perf_counter()
+                tokens = rt.get(compiled.execute(record["prompts8"]), timeout=900)
+                dag_s = time.perf_counter() - t0
+                launches = rt.get(served.launches.remote(), timeout=60)
+                stats = rt.get(served.stats.remote(), timeout=60)
+            finally:
+                compiled.teardown()
+            emit({"compiled_dag_s": dag_s, "direct_round_s": record["round_s"],
+                  "dag_over_direct": dag_s / record["round_s"], "admitted": stats["admitted"],
+                  "tokens_equal_direct": tokens == record["tokens8"],
+                  "worker_launches": launches})
+            if tokens != record["tokens8"] or launches != {
+                    "flash_fwd": cfg.layers * stats["admitted"], "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0} or stats["admitted"] != len(record["prompts8"]):
+                raise AssertionError(f"the compiled DAG's round: {launches}, {stats}, tokens "
+                                     f"equal {tokens == record['tokens8']}")
+            driver = read_launches(A)
+            if driver != {name: 0 for name in COUNTERS}:
+                raise AssertionError(f"the driver launched {driver} during the path")
+
+            with InputNode() as inp:
+                echo = served.echo.bind(inp)
+            compiled = echo.experimental_compile()
+            try:
+                if not compiled._channel_mode:
+                    raise AssertionError("the echo DAG fell back to the task path")
+                execute_us = median_host_us(lambda: rt.get(compiled.execute(1)), DAG_CALLS)
+            finally:
+                compiled.teardown()
+            remote_us = median_host_us(lambda: rt.get(served.echo.remote(1)), DAG_CALLS)
+            emit({"compiled_execute_us": execute_us, "actor_call_us": remote_us,
+                  "calls": DAG_CALLS, "clock": "host, median", "card": smi})
+            rt.get(served.close.remote(), timeout=60)
+            rt.kill(served)
+            spg.remove()
+        finally:
+            rt.shutdown()
+        card_back(used_before, "the compiled DAG's teardown() and shutdown()")
+    return launches
+
+
+class RowWriter:
+    """device_tensor_channel's writer, a num_gpus=1 actor: draws a bf16 KV
+    row on its card from a seed, and writes it through the channel."""
+
+    def __init__(self, channel):
+        import ray_tpu_torch as rt
+
+        self.ch = channel
+        self.facts = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      "gpu_ids": rt.get_runtime_context().get_assigned_resources()["gpu_ids"]}
+        self.row = None
+
+    def worker_facts(self):
+        return self.facts
+
+    def prepare(self, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.row = torch.randn(ROW_SHAPE, generator=gen, device="cuda").bfloat16()
+        torch.cuda.synchronize()
+
+    def send(self):
+        t0 = time.perf_counter()
+        self.ch.write(self.row, timeout=300)
+        return 1e3 * (time.perf_counter() - t0)
+
+
+def device_tensor_channel(smi) -> None:
+    """ray_tpu_torch.experimental.rdt on the cluster runtime, in a fresh
+    init(): a num_gpus=1 actor writes llama3_8b's KV row, bf16
+    [2, 32, 2048, 8, 128] (268,435,456 B), through a DeviceTensorChannel
+    (its card → pinned host → shared memory); the driver reads it onto
+    its card (shared memory → pinned host → card). Gates: bit-equal to
+    the row drawn from the same seed on the driver's card, on the card on
+    arrival. ms and GB/s a hand-off (the driver's wall from the send call
+    to the row on its card; median of ROW_HANDOFFS after one warm-up),
+    beside CUDA puts of 64 MB and 268 MB through the object store, got
+    and moved to the card in a num_gpus=1 task (runtime_cluster's
+    cluster_fetch_task; median of STORE_PUTS). No flash kernel runs."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.experimental.rdt import DeviceTensorChannel
+
+    shm = shutil.disk_usage("/dev/shm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    used_before = total - free
+    with phase("device_tensor_channel"):
+        nbytes = int(np.prod(ROW_SHAPE)) * 2
+        emit({"dev_shm_bytes": shm.total, "dev_shm_free": shm.free, "row_bytes": nbytes})
+        rt.init(num_cpus=4)
+        ch = None
+        try:
+            ch = DeviceTensorChannel(ROW_SHAPE, torch.bfloat16)
+            rd = ch.reader(0)  # device None: the driver's card
+            writer = rt.remote(num_gpus=1)(RowWriter).remote(ch)
+            facts = rt.get(writer.worker_facts.remote(), timeout=300)
+            if facts != {"visible": "0", "gpu_ids": [0]}:
+                raise AssertionError(f"the writer did not lease the card: {facts}")
+            handoff_ms, write_ms, equal, on_card = [], [], [], []
+            for i in range(1 + ROW_HANDOFFS):
+                rt.get(writer.prepare.remote(SEED + i), timeout=300)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sent = writer.send.remote()
+                row = rd.read(timeout=300)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                w_ms = rt.get(sent, timeout=300)
+                gen = torch.Generator(device="cuda").manual_seed(SEED + i)
+                want = torch.randn(ROW_SHAPE, generator=gen, device="cuda").bfloat16()
+                equal.append(bool(torch.equal(row.view(torch.int16), want.view(torch.int16))))
+                on_card.append(row.is_cuda)
+                if i:  # the first is the warm-up (pinned buffers, first copies)
+                    handoff_ms.append(ms)
+                    write_ms.append(w_ms)
+                del row, want
+            med = float(np.median(handoff_ms))
+            emit({"handoff_ms": handoff_ms, "handoff_ms_median": med,
+                  "handoff_gb_s": nbytes / med / 1e6, "writer_write_ms": write_ms,
+                  "bit_equal": equal, "is_cuda": on_card, "bytes": nbytes,
+                  "clock": "host", "card": smi})
+            if not (all(equal) and all(on_card)):
+                raise AssertionError(f"device channel: bit-equal {equal}, on the card {on_card}")
+
+            rt.kill(writer)  # its card goes to the fetching tasks
+            fetch = rt.remote(num_gpus=1)(cluster_fetch_task)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+            for size in STORE_BYTES:
+                x = torch.randn(size // 2, generator=gen, device="cuda").bfloat16()
+                put_ms, fetched = [], []
+                for _ in range(STORE_PUTS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ref = rt.put(x)
+                    put_ms.append(1e3 * (time.perf_counter() - t0))
+                    fetched.append(rt.get(fetch.remote([ref]), timeout=300))
+                    del ref
+                total_ms = [p + f["get_ms"] + f["to_card_ms"] for p, f in zip(put_ms, fetched)]
+                emit({"store_bytes": fetched[0]["nbytes"], "put_ms": put_ms,
+                      "get_ms": [f["get_ms"] for f in fetched],
+                      "to_card_ms": [f["to_card_ms"] for f in fetched],
+                      "put_get_ms_median": float(np.median(total_ms)),
+                      "put_get_gb_s": fetched[0]["nbytes"] / float(np.median(total_ms)) / 1e6,
+                      "clock": "host", "card": smi})
+                del x
+        finally:
+            if ch is not None:
+                ch.close()
+            rt.shutdown()
+        card_back(used_before, "the device channel's shutdown()")
+
+
+DISAGG_SLOTS = 8  # the decode replica's slots: the 8 prompts at once
+
+
+def seeded_params(model, seed, device="cuda"):
+    """``model``'s weights (a preset name or config, in bf16) drawn from
+    ``seed`` on ``device``, as LLMEngine draws them."""
+    from ray_tpu_torch.models import transformer as T
+
+    cfg = T.config(model, param_dtype=torch.bfloat16)
+    return T.init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def logit_margin(cfg, params, ids) -> float:
+    """Top-1 minus top-2 of the last logits of ``ids`` (one prefill): how
+    near a tie the greedy choice after ``ids`` is."""
+    from ray_tpu_torch.models.decoding import forward_cached, init_cache
+
+    toks = torch.tensor([ids], device="cuda")
+    pos = torch.arange(len(ids), device="cuda")[None, :]
+    with torch.no_grad():
+        lg, _ = forward_cached(cfg, params, toks, pos, init_cache(cfg, 1, len(ids)),
+                               None, prefill=True)
+    top = torch.topk(lg[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def disagg_prefill(record, smi) -> dict:
+    """Disaggregated prefill of llama3_8b in local mode on one card
+    (init(local_mode=True): a cluster's raylet leases whole cards, so two
+    replica processes would need two). Seed-0 weights drawn once here, as
+    LLMEngine draws them; the 8 prompts first through a single-process
+    PagedBatcher (wall, tokens: the reference), then, counted from 0,
+    through DisaggPrefillEngine: a PrefillReplica and a DecodeReplica
+    (num_gpus=1 each, both threads of this process on its card) joined
+    by a shared-memory TensorChannel of fp32 rows [2, 32, 2048, 8, 128]
+    (536,870,912 B). Gates: tokens equal the reference's (on a mismatch,
+    the first differing position and the greedy margin there are printed
+    before the failure), the decode replica's prefill_tokens 0 and
+    admitted 8, flash launches 32 x 8 = 256. Then TTFT: each prompt alone
+    with max_tokens=1, through both. Returns the path's launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.models.decoding import SamplingParams
+    from ray_tpu_torch.models.disagg_prefill import DisaggPrefillEngine
+    from ray_tpu_torch.models.paged_kv import PagedBatcher
+    from ray_tpu_torch.ops import attention as A
+
+    config = record["config"]
+    cfg = T.config(config.model)
+    tok = config.get_tokenizer()
+    ids8 = [tok.encode(p) for p in record["prompts8"]]
+    greedy = SamplingParams(max_tokens=MAX_TOKENS)
+    first = SamplingParams(max_tokens=1)
+    params = seeded_params(cfg, config.seed)
+    try:
+        with phase("disagg_paged_reference"):
+            pb = PagedBatcher(cfg, params, max_len=MAX_LEN, slots=DISAGG_SLOTS,
+                              page_size=PAGE_SIZE, seed=SEED, device="cuda")
+            try:
+                t0 = time.perf_counter()
+                want = [f.result(timeout=600) for f in [pb.submit(i, greedy) for i in ids8]]
+                paged_s = time.perf_counter() - t0
+                paged_ttft = []
+                for i in ids8:
+                    t0 = time.perf_counter()
+                    pb.submit(i, first).result(timeout=600)
+                    paged_ttft.append(time.perf_counter() - t0)
+            finally:
+                pb.shutdown()
+                del pb
+            emit({"paged_s": paged_s, "paged_ttft_s": paged_ttft})
+        torch.cuda.empty_cache()
+
+        reset_launches(A)
+        with phase("disagg_prefill"):
+            rt.init(local_mode=True)
+            eng = None
+            try:
+                eng = DisaggPrefillEngine(cfg, params, max_len=MAX_LEN, slots=DISAGG_SLOTS,
+                                          page_size=PAGE_SIZE, num_gpus=1)
+                t0 = time.perf_counter()
+                refs = [eng.generate(i, greedy) for i in ids8]
+                outs = [rt.get(r, timeout=900) for r in refs]
+                disagg_s = time.perf_counter() - t0
+                launches = read_launches(A)
+                stats = eng.stats()
+                pre = rt.get(eng.prefiller.timings.remote(), timeout=60)
+                dec = rt.get(eng.decoder.timings.remote(), timeout=60)
+                row = {"disagg_s": disagg_s, "paged_s": paged_s,
+                       "disagg_over_paged": disagg_s / paged_s, "stats": stats,
+                       "launches": launches, "tokens_equal_paged": outs == want,
+                       "row_bytes": int(np.prod((2, cfg.layers, MAX_LEN, cfg.kv_heads,
+                                                 cfg.hd))) * 4,
+                       **{f"{k}_median": float(np.median([t[k] for t in pre]))
+                          for k in ("prefill_ms", "stage_ms", "write_ms")},
+                       **{f"{k}_median": float(np.median([t[k] for t in dec]))
+                          for k in ("read_ms", "to_device_ms")},
+                       "prefill_timings": pre, "decode_timings": dec,
+                       "clock": "host", "card": smi}
+                emit(row)
+                if outs != want:
+                    p = next(j for j, (a, b) in enumerate(zip(outs, want)) if a != b)
+                    k = next(j for j, (a, b) in enumerate(zip(outs[p], want[p])) if a != b)
+                    emit({"first_difference": {"prompt": p, "position": k,
+                                               "disagg": outs[p][k], "paged": want[p][k],
+                                               "greedy_margin": logit_margin(
+                                                   cfg, params, ids8[p] + want[p][:k])}})
+                if outs != want or stats["prefill_tokens"] != 0 or \
+                        stats["admitted"] != len(ids8) or launches != {
+                            "flash_fwd": cfg.layers * len(ids8), "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}:
+                    raise AssertionError(f"disaggregated prefill: {stats}, {launches}, tokens "
+                                         f"equal {outs == want}")
+                disagg_ttft = []
+                for i in ids8:
+                    t0 = time.perf_counter()
+                    rt.get(eng.generate(i, first), timeout=600)
+                    disagg_ttft.append(time.perf_counter() - t0)
+                emit({"disagg_ttft_s": disagg_ttft, "paged_ttft_s": paged_ttft,
+                      "disagg_ttft_s_median": float(np.median(disagg_ttft)),
+                      "paged_ttft_s_median": float(np.median(paged_ttft)),
+                      "clock": "host", "card": smi})
+            finally:
+                if eng is not None:
+                    eng.shutdown()
+                rt.shutdown()
+    finally:
+        del params
         gc.collect()
         torch.cuda.empty_cache()
-        deadline = time.monotonic() + 30
-        while True:  # a killed replica's memory returns to the card a moment later
-            free, total = torch.cuda.mem_get_info()
-            left = (total - free) - used_before
-            if left <= CLUSTER_LEFT_BYTES or time.monotonic() > deadline:
-                break
-            time.sleep(0.5)
-        alive = cluster_processes()
-        emit({"card_used_before": used_before, "card_used_after": total - free,
-              "left_bytes": left, "pgrep": alive})
-        if left > CLUSTER_LEFT_BYTES or alive:
-            raise AssertionError(f"after serve.shutdown() and shutdown(): {left} bytes more "
-                                 f"in use on the card, processes left: {alive!r}")
-    return out
+    return launches
 
 
 def serving_phases(kernels, smi) -> tuple:
@@ -3661,8 +4053,8 @@ def got_fragments(rt):
         rt.get = plain
 
 
-def fragment_key(frag) -> bytes:
-    return np.ascontiguousarray(frag["obs"]).tobytes()
+def same_fragment(a, b) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
 
 
 def train_elastic(rt, smi, unsharded) -> dict:
@@ -3780,10 +4172,12 @@ def rl_drivers(rt, smi) -> dict:
     learner on the card, RL_DRIVER_ITERS train() calls each; and the same
     algorithm built with its learner on the CPU from the same numpy init,
     one train(). Gates: the first iteration's fragments bit-equal to the
-    CPU build's (IMPALA's as a set: which of its runners lands first is a
-    race); the params after it within RL_TOL of the CPU learner's (IMPALA:
-    of a CPU learner fed the card run's fragments in its order), the
-    metrics within RL_TOL absolute and relative. Prints each iteration's
+    CPU build's (IMPALA's each to a distinct one of the CPU build's
+    runners' first two samples with the init policy: which fragments the
+    asynchronous first iteration takes is a race); the params after it
+    within RL_TOL of the CPU learner's (IMPALA: of a CPU learner fed the
+    card run's fragments in its order), the metrics within RL_TOL
+    absolute and relative. Prints each iteration's
     ms and env steps/s. Returns the flash launches (none)."""
     from ray_tpu_torch import rllib as R
     from ray_tpu_torch.ops import attention as A
@@ -3815,22 +4209,32 @@ def rl_drivers(rt, smi) -> dict:
                     if i == 0:
                         first, card_frags = result, frags
                         card_params = card.learner.get_weights_np()
-                with got_fragments(rt) as cpu_frags:
-                    ref = cpu.train()
                 if name == "impala":
+                    # which runner lands first, and whether a fast runner's
+                    # second sample (its pipe refilled with the init policy
+                    # before the first update) lands before the other's
+                    # first, is a race: each of the first iteration's
+                    # fragments is held against the CPU build's runners'
+                    # first two samples with the init policy, one each
+                    w = cpu.learner.get_policy_np()
+                    length = fields["rollout_fragment_length"]
+                    samples = rt.get([r.sample.remote(w, length) for r in cpu.runners
+                                      for _ in range(2)], timeout=300)
+                    cpu_frags = [next((c for c in samples if same_fragment(f, c)), None)
+                                 for f in card_frags]
+                    ref = {}
                     replay = IMPALALearner(cfg, card.obs_dim, card.num_actions, device="cpu")
                     replay.set_weights(init)
                     for f in card_frags:
                         ref = dict(ref, **replay.update(f))
                     ref_params = replay.get_weights_np()
-                    pairs = zip(sorted(card_frags, key=fragment_key),
-                                sorted(cpu_frags, key=fragment_key))
+                    equal = len({id(c) for c in cpu_frags if c is not None}) == len(card_frags)
                 else:
+                    with got_fragments(rt) as cpu_frags:
+                        ref = cpu.train()
                     ref_params = cpu.learner.get_weights_np()
-                    pairs = zip(card_frags, cpu_frags)
-                equal = len(card_frags) == len(cpu_frags) and all(
-                    a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
-                    for a, b in pairs)
+                    equal = len(card_frags) == len(cpu_frags) and all(
+                        same_fragment(a, b) for a, b in zip(card_frags, cpu_frags))
                 p_diff = max_tree_diff(card_params, ref_params)
                 metrics = {k: v for k, v in first.items()
                            if k not in ("training_iteration",) and isinstance(v, float)}
@@ -4008,6 +4412,9 @@ def main() -> int:
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
     cluster = runtime_cluster(record, smi)
     served = serve_phases(record, smi)
+    compiled_dag = placement_and_compiled_dag(record, smi)
+    device_tensor_channel(smi)
+    disagg = disagg_prefill(record, smi)
     data_batch = data_llm_batch(smi)
 
     flash_bwd_vs_plain(kernels, smi)
@@ -4036,6 +4443,8 @@ def main() -> int:
         row["launches_by_path"] = {"serving": serving[name], "runtime_local": runtime[name],
                                    "runtime_cluster": cluster[name],
                                    **{path: served[path][name] for path in served},
+                                   "compiled_dag_llm": compiled_dag[name],
+                                   "disagg_prefill": disagg[name],
                                    "paged_serving": paged[name],
                                    "data_llm_batch": data_batch[name],
                                    "train_step": train[name],

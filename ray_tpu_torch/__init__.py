@@ -17,11 +17,16 @@ DQN, SAC and BC learners in process, and Anakin: rollout, V-trace and
 Adam on the card, its envs split over a process group's ranks), ``data``
 (Datasets run in process, ``iter_torch_batches`` feeding the train step,
 and ``llm.build_llm_processor``'s batch inference over them), ``tune``
-(Tuner trials as local-mode actors, its searchers and schedulers) and
+(Tuner trials as local-mode actors, its searchers and schedulers),
 ``serve`` (deployments, the controller and replica actors, @serve.batch,
 deadlines and shedding, multiplexing, the HTTP proxy and local testing
 mode; ``llm.serve_llm`` serves an engine from a replica on a leased
-card).
+card), ``dag`` (task and actor graphs; ``experimental_compile`` runs an
+actor graph over shared-memory channels), ``experimental`` (the channels;
+``experimental.rdt`` moves CUDA tensors between processes through the
+host) and ``util`` (placement groups, scheduling strategies, GPU slices
+in ``util.gpu``). ``models.disagg_prefill`` serves with prefill and
+decode in two replicas, KV rows crossing a tensor channel.
 
 The runtime's public API is ``ray_tpu``'s (reference:
 python/ray/__init__.py): ``init, shutdown, remote, get, put, wait, kill,

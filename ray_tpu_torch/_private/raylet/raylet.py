@@ -954,7 +954,6 @@ class Raylet:
         rs = ResourceSet(total)
         # bundle inherits concrete card ids reserved from the node
         rs.free_gpu_ids = list(alloc.get("gpu_ids", []))
-        rs._node_alloc = alloc  # keep to release back later
         self.committed_bundles[(pg_id, bundle_index)] = rs
         return {"ok": True}
 
@@ -966,8 +965,15 @@ class Raylet:
 
     async def ReleaseBundle(self, pg_id: str, bundle_index: int) -> dict:
         rs = self.committed_bundles.pop((pg_id, bundle_index), None)
-        if rs is not None and hasattr(rs, "_node_alloc"):
-            self.resources.release(rs._node_alloc)
+        if rs is not None:
+            # only what no lease holds goes back now: a lease still alive
+            # in the bundle returns its share (its cards too) to the node
+            # when it ends (_rs_for_lease falls back to the node's set).
+            # Giving back the bundle's whole reservation here would hand a
+            # leased card out twice (the JAX package's raylet does).
+            self.resources.release({
+                "resources": {k: v for k, v in rs.available.items() if v > 0},
+                "gpu_ids": list(rs.free_gpu_ids)})
         self._kick_drain()
         return {"ok": True}
 

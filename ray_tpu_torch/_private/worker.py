@@ -22,7 +22,6 @@ from ray_tpu_torch._private.reference_counter import ReferenceCounter
 logger = logging.getLogger(__name__)
 
 # the rows of ROADMAP.md that the modes the port does not run wait for
-ITEM_9_CHANNELS = "ROADMAP.md Queue A item 9, 'experimental/channel.py'"
 ITEM_10B_II = ("ROADMAP.md Queue A item 10b-ii, 'multi-node joins, fault "
                "paths and the fastpath C codec'")
 ITEM_12_CLIENT = "ROADMAP.md Queue A item 12, 'util/client'"
@@ -230,9 +229,19 @@ def get(
     *,
     timeout: Optional[float] = None,
 ) -> Any:
+    from ray_tpu_torch.dag_compiled import CompiledDAGRef
+
+    if isinstance(refs, CompiledDAGRef):
+        # compiled-DAG results live in channels, not the object store
+        return refs.get(timeout)
     w = _require_connected()
     single = isinstance(refs, ObjectRef)
     ref_list = [refs] if single else list(refs)
+    if any(isinstance(r, CompiledDAGRef) for r in ref_list):
+        if not all(isinstance(r, CompiledDAGRef) for r in ref_list):
+            raise TypeError(
+                "ray_tpu_torch.get() cannot mix CompiledDAGRefs with ObjectRefs")
+        return [r.get(timeout) for r in ref_list]
     for r in ref_list:
         if not isinstance(r, ObjectRef):
             raise TypeError(f"ray_tpu_torch.get() expects ObjectRef(s), got {type(r)}")

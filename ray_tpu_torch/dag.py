@@ -1,17 +1,15 @@
 """Lazy task/actor DAG building + execution (copy of ray_tpu/dag.py).
 
-Reference: python/ray/dag/ (DAGNode, FunctionNode, ClassNode, InputNode).
-``f.bind(x).execute()`` submits the underlying tasks with dependencies
-expressed as ObjectRefs. ``.experimental_compile()`` raises: a compiled
-graph runs over channels between actor processes
-(ray_tpu/dag_compiled.py), which wait for item 9's channels.
+Reference: python/ray/dag/ (DAGNode, FunctionNode, ClassNode, InputNode;
+compiled DAGs in compiled_dag_node.py). ``f.bind(x).execute()`` submits the
+underlying tasks with dependencies expressed as ObjectRefs;
+``.experimental_compile()`` returns a CompiledDAG (ray_tpu_torch/dag_compiled.py)
+whose schedule and actors are fixed once and reused across executions.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
-
-from ray_tpu_torch._private.worker import ITEM_9_CHANNELS, waits_for
 
 
 class DAGNode:
@@ -49,8 +47,9 @@ class DAGNode:
                 v._clear_cache()
 
     def experimental_compile(self, **kwargs):
-        raise waits_for("experimental_compile(), a graph over channels between "
-                        "actor processes,", ITEM_9_CHANNELS)
+        from ray_tpu_torch.dag_compiled import CompiledDAG
+
+        return CompiledDAG(self, **kwargs)
 
 
 class InputNode(DAGNode):
@@ -156,3 +155,8 @@ class MultiOutputNode(DAGNode):
 
     def _execute_impl(self, input_value):
         return [n._execute_impl(input_value) for n in self._bound_args]
+
+    def experimental_compile(self, **kwargs):
+        from ray_tpu_torch.dag_compiled import CompiledDAG
+
+        return CompiledDAG(list(self._bound_args), **kwargs)

@@ -1,7 +1,14 @@
 """Model zoo of the PyTorch port (flagship: Llama-family decoder LM),
 with its serving caches: slot-dense (``continuous_batching``) and paged
-with prefix reuse (``paged_kv``)."""
+with prefix reuse (``paged_kv``), and disaggregated prefill over the
+paged cache (``disagg_prefill``: KV rows from a prefill replica to a
+decode replica through a tensor channel)."""
 
+from ray_tpu_torch.models.disagg_prefill import (
+    DecodeReplica,
+    DisaggPrefillEngine,
+    PrefillReplica,
+)
 from ray_tpu_torch.models.paged_kv import (
     KVPoolExhausted,
     PagedBatcher,
@@ -19,6 +26,9 @@ from ray_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "DecodeReplica",
+    "DisaggPrefillEngine",
+    "PrefillReplica",
     "KVPoolExhausted",
     "PagedBatcher",
     "PagedKV",

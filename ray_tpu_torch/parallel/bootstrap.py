@@ -48,14 +48,16 @@ class HostGroupSpec:
     replacement_epoch: int = 0
 
 
+ITEM_7_MULTI_SLICE = "ROADMAP.md Queue A item 7, 'multi-slice megascale_env'"
+
+
 def check_slices(num_slices: int) -> None:
     """More than one slice raises: multi-slice DCN is not ported
     (ROADMAP.md Queue A item 7, 'multi-slice megascale_env')."""
     if num_slices > 1:
         raise NotImplementedError(
             f"{num_slices} slices: multi-slice (DCN) bring-up is not ported "
-            "to ray_tpu_torch yet (ROADMAP.md Queue A item 7, 'multi-slice "
-            "megascale_env')")
+            f"to ray_tpu_torch yet ({ITEM_7_MULTI_SLICE})")
 
 
 def megascale_env(spec: HostGroupSpec) -> Dict[str, str]:

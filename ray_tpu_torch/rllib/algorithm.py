@@ -6,10 +6,10 @@ the same for every algorithm; each config dataclass inherits them and
 sets ``algo_cls`` after its algorithm class is defined. ``build`` passes
 keyword arguments on to the algorithm (the port's ``device=``).
 
-``waits_for_runtime`` makes the stand-in for a name of Sebulba, which
-needs the shared-memory tensor channel (``experimental/channel.py``'s
-``TensorChannel``) besides the actor runtime: using it raises, naming
-ROADMAP.md's row.
+``waits_for_runtime`` makes the stand-in for a name of Sebulba (its
+actor and learner fleets over the shared-memory tensor channel,
+``experimental/channel.py``'s ``TensorChannel``), which is not ported
+yet: using it raises, naming ROADMAP.md's row.
 """
 
 from __future__ import annotations
@@ -45,13 +45,10 @@ class AlgorithmConfigBase:
 
 def waits_for_runtime(name: str, what: str) -> type:
     """A class named ``name`` whose construction raises
-    NotImplementedError: ``what`` streams through the tensor channel,
-    which the port does not have yet."""
+    NotImplementedError: ``what`` is not ported yet."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            f"{name}: {what} is not ported to ray_tpu_torch yet; it waits for "
-            f"the tensor channel ({ITEM_8C}, after item 9's "
-            "'experimental/channel.py')")
+            f"{name}: {what} is not ported to ray_tpu_torch yet ({ITEM_8C})")
 
     return type(name, (), {"__init__": __init__, "__doc__": f"Not ported: {what}."})

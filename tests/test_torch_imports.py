@@ -13,11 +13,13 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch.data import Dataset
+from ray_tpu_torch.experimental.rdt import DeviceTensorChannel
 from ray_tpu_torch.llm import ContinuousLLMEngine, LLMConfig, LLMEngine, build_llm_processor
 from ray_tpu_torch.models import transformer as T
 from ray_tpu_torch.models.continuous_batching import ContinuousBatcher
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.decoding import Generator, init_cache
+from ray_tpu_torch.models.disagg_prefill import DisaggPrefillEngine
 from ray_tpu_torch.models.paged_kv import PagedBatcher
 from ray_tpu_torch.parallel import initialize_host, local_process_specs, single_device_mesh
 from ray_tpu_torch.util.collective import init_collective_group
@@ -113,7 +115,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch._private.workers.default_worker, "
             "ray_tpu_torch._private.workers.zygote, ray_tpu_torch.observability, "
             "ray_tpu_torch.util.metrics, ray_tpu_torch.util.state, "
-            "ray_tpu_torch.rllib.podracer.obs; "
+            "ray_tpu_torch.rllib.podracer.obs, ray_tpu_torch.util, "
+            "ray_tpu_torch.util.placement_group, ray_tpu_torch.util.scheduling_strategies, "
+            "ray_tpu_torch.util.gpu, ray_tpu_torch.experimental, "
+            "ray_tpu_torch.experimental.channel, ray_tpu_torch.experimental.rdt, "
+            "ray_tpu_torch.dag_compiled, ray_tpu_torch.models.disagg_prefill; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu', "
             "'psutil', 'cloudpickle')))")
@@ -156,7 +162,7 @@ def no_cuda(monkeypatch):
     "init_state", "make_train_step", "make_eval_step", "single_device_mesh",
     "PagedBatcher", "init_collective_group", "initialize_host", "restore_state",
     "LLMEngine_params_path", "TorchTrainer", "start_gpu_profile", "build_llm_processor",
-    "iter_torch_batches",
+    "iter_torch_batches", "DisaggPrefillEngine", "DeviceTensorReader",
 ])
 def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
     cfg = T.config("debug")
@@ -186,9 +192,15 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
         "build_llm_processor": lambda: build_llm_processor(LLMConfig(model="debug")),
         "iter_torch_batches": lambda: next(Dataset([{"id": torch.arange(2).numpy()}])
                                            .iter_torch_batches(batch_size=1)),
+        "DisaggPrefillEngine": lambda: DisaggPrefillEngine(cfg, {}),
+        "DeviceTensorReader": lambda: channel.reader().read(timeout=1),
     }
-    with pytest.raises(RuntimeError, match="CUDA"):
-        calls[entry]()
+    channel = DeviceTensorChannel((2,), "bfloat16")
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            calls[entry]()
+    finally:
+        channel.close()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -48,6 +48,10 @@ def stage_records(pkg):
     obs, podracer, _, metrics = PACKAGES[pkg]
     hist = podracer._stage_histogram()
     before = len(obs.local_events())
+    # the histogram is process-wide: another test in this process may have
+    # recorded stages before, so what this call adds is the difference
+    counted = {tuple(sorted(s["tags"].items())): s["count"]
+               for s in hist._snapshot()["series"]}
     st = podracer.StageTimes()
     with st.track(podracer.STAGE_UPDATE, learner=0):
         pass
@@ -60,8 +64,10 @@ def stage_records(pkg):
     spans = [shape(e) for e in new if e["type"] == "span"]
     stage = [e for e in new if e["type"] == "podracer_stage"]
     assert len(stage) == 1 and stage[0]["stages"] == snap
-    counts = {tuple(sorted(s["tags"].items())): s["count"]
-              for s in hist._snapshot()["series"]}
+    counts = {key: n - counted.get(key, 0) for key, n in
+              ((tuple(sorted(s["tags"].items())), s["count"])
+               for s in hist._snapshot()["series"])}
+    counts = {key: n for key, n in counts.items() if n}
     return (spans, {k: v["n"] for k, v in snap.items()}, sorted(shape(stage[0])),
             hist._snapshot()["name"], hist._snapshot()["type"], counts)
 

@@ -526,7 +526,9 @@ def test_cluster_modes_raise_naming_item_10b():
     """Cluster mode on one node came with item 10b (tests/test_torch_cluster*.py);
     what is left of it raises naming the row it waits for: discovering a
     cluster that the CLI started (10b-ii), a remote driver and the
-    dashboard (item 12), and a compiled graph (item 9's channels)."""
+    dashboard (item 12). A compiled graph came with item 9
+    (tests/test_torch_compiled_dag.py): in local mode, whose actors run no
+    ``__ray_call__``, it takes the task path."""
     rt = ray_tpu_torch
     rows = [({"address": "auto"}, "ROADMAP.md Queue A item 10b-ii, 'multi-node joins, "
                                   "fault paths and the fastpath C codec'"),
@@ -539,19 +541,21 @@ def test_cluster_modes_raise_naming_item_10b():
     # timeline() reads a cluster's GCS: local mode has none, in both packages
     got = [run_local(p, lambda p: outcome(p, p.timeline)) for p in PACKAGES]
     assert got[0][0] == got[1][0] == "AttributeError"
-    item9 = "ROADMAP.md Queue A item 9, 'experimental/channel.py'"
     rt.init(local_mode=True)
     try:
         @rt.remote
         def f(x):
             return x
 
-        with pytest.raises(NotImplementedError, match=re.escape(item9)):
-            f.bind(1).experimental_compile()
+        from ray_tpu_torch.dag_compiled import CompiledDAG
+
         with rt.dag.InputNode() as inp:
             multi = rt.dag.MultiOutputNode([f.bind(inp)])
-        with pytest.raises(NotImplementedError, match=re.escape(item9)):
-            multi.experimental_compile()
+        for dag, arg, want in ((f.bind(1), None, 1), (multi, 7, [7])):
+            compiled = dag.experimental_compile()
+            assert isinstance(compiled, CompiledDAG) and not compiled._channel_mode
+            assert rt.get(compiled.execute(arg)) == want
+            compiled.teardown()
         with pytest.raises(TypeError, match="expects ObjectRef"):
             rt.get([3])
         assert rt.get(f.bind(5).execute()) == 5
