@@ -41,7 +41,15 @@ worker, through CUDA_VISIBLE_DEVICES) and holds:
   rows (536,870,912 B) crossing processes through the shared-memory
   TensorChannel: tokens equal a single-process PagedBatcher's, no
   prefill in the decode replica, 32 x 8 flash launches all in the
-  prefill replica's process; ms a row hand-off.
+  prefill replica's process; ms a row hand-off;
+- Sebulba with two learners (sebulba_two_learners): the JAX package's
+  4-actor point (4 pod actors, 2 learners, each learner on a card it
+  leases, a cross-learner broadcast over the OBJSTORE backend every 2nd
+  train()): both learners' params bit-equal after each sync, no order or
+  app errors, and a kill of learner 1 right before a broadcast giving one
+  group rotation and one restart with no app error; env steps/s beside
+  the one-learner 2-actor point (chip_smoke.SEBULBA) measured in the same
+  run.
 
 Prints JSON lines and the cards' names and power limits; any failed gate
 raises and the script exits non-zero. Without 4 CUDA devices it exits 1
@@ -620,6 +628,87 @@ def elastic_full_width(rt, S, out, device, smi, preset, rows, seq, single):
     return row
 
 
+SEBULBA_TWO = dict(C.SEBULBA, num_actors=4, num_learners=2, sync_every_iterations=2)
+SEBULBA_SYNCED_TRAINS = 4  # train() calls held for bit-equal params after each sync
+
+
+def sebulba_two_learners(rt, device, smi):
+    """SEBULBA_TWO on this node (``device=None``: each learner leases a
+    card; "cpu": a rehearsal under RAY_TPU_FAKE_GPUS, no lease). Gates:
+    after every train() that synced, the two learners' params bit-equal;
+    0 order and app errors throughout; each learner's process on its own
+    card; learner 1 killed right before a broadcast: one group rotation,
+    one restart, no app error, and the next train() clean. Prints env
+    steps/s (chip_smoke.rl_measure) beside the one-learner point
+    (chip_smoke.SEBULBA) timed in this call."""
+    from ray_tpu_torch.rllib.podracer import SebulbaConfig
+
+    def params_equal(algo):
+        a, b = rt.get([ln.get_params_np.remote() for ln in algo.learners], timeout=300)
+        return all(np.array_equal(a[n][k], b[n][k]) for n in a for k in a[n])
+
+    with C.phase("sebulba_two_learners"):
+        one = SebulbaConfig(**C.SEBULBA).build(device=device)
+        try:
+            one_m = C.rl_measure(one, C.SEBULBA_FRAMES)
+            one_m.pop("results")
+        finally:
+            one.stop()
+        cfg = SebulbaConfig(**SEBULBA_TWO)
+        algo = cfg.build(device=device)
+        try:
+            facts = rt.get([ln.__ray_call__.remote(C.learner_facts) for ln in algo.learners],
+                           timeout=300)
+            synced = []
+            for _ in range(SEBULBA_SYNCED_TRAINS):
+                r = algo.train()
+                if (r["training_iteration"] - 1) % cfg.sync_every_iterations == 0:
+                    synced.append({"iteration": r["training_iteration"],
+                                   "params_bit_equal": params_equal(algo),
+                                   "order_errors": r["order_errors"],
+                                   "app_errors": r["app_errors"]})
+            two_m = C.rl_measure(algo, C.SEBULBA_FRAMES)
+            results = two_m.pop("results")
+            algo.kill_learner(1)
+            t0 = time.perf_counter()
+            algo._sync_learners()  # a broadcast with a dead counterpart
+            kill_sync_s = time.perf_counter() - t0
+            after = {"group_rotations": algo.group_rotations,
+                     "learner_restarts": algo.learner_restarts, "app_errors": algo.app_errors}
+            post = algo.train()
+            if (post["training_iteration"] - 1) % cfg.sync_every_iterations:
+                post = algo.train()  # the next one that syncs
+            post_equal = params_equal(algo)
+            respawned = rt.get(algo.learners[1].__ray_call__.remote(C.learner_facts),
+                               timeout=300)
+        finally:
+            algo.stop()
+        row = {"config": SEBULBA_TWO, "env_steps_per_s": two_m["steps_per_s"],
+               "frames": two_m["frames"], "wall_s": two_m["wall_s"],
+               "one_learner_env_steps_per_s": one_m["steps_per_s"],
+               "two_vs_one": two_m["steps_per_s"] / one_m["steps_per_s"],
+               "synced": synced, "learners": facts, "kill_sync_s": kill_sync_s,
+               "after_kill_sync": after,
+               "post": {k: post[k] for k in ("training_iteration", "num_updates", "order_errors",
+                                             "app_errors", "group_rotations",
+                                             "learner_restarts")},
+               "post_params_bit_equal": post_equal, "respawned": respawned,
+               "clock": "host", "card": smi}
+        C.emit(row)
+        cards = {f["visible"] for f in facts + [respawned]}
+        bad = [r for r in results if r["order_errors"] or r["app_errors"]]
+        if bad or not synced or not all(x["params_bit_equal"] and not x["order_errors"]
+                                        and not x["app_errors"] for x in synced) \
+                or after != {"group_rotations": 1, "learner_restarts": 1, "app_errors": 0} \
+                or post["app_errors"] or post["order_errors"] or not post_equal \
+                or (device is None and (len({f["visible"] for f in facts}) != 2
+                                        or not all(f["param_device"] == "cuda:0"
+                                                   for f in facts + [respawned])
+                                        or len(cards) != 2)):
+            raise AssertionError(f"sebulba_two_learners: {row}; bad results {bad}")
+    return row
+
+
 def main() -> int:
     if torch.cuda.device_count() < WORLD:
         print(f"chip_cards: {torch.cuda.device_count()} CUDA devices; this script needs "
@@ -654,6 +743,7 @@ def main() -> int:
         elastic_full_width(rt, S, out, "cuda", smi, "llama2_7b_lora", ROWS_A_RANK, C.MAX_LEN,
                            single)
         disagg_two_cards(rt, "cuda", smi)
+        sebulba_two_learners(rt, None, smi)
     finally:
         rt.shutdown()
         shutil.rmtree(out, ignore_errors=True)

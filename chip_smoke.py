@@ -173,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import uuid
 
 import numpy as np
 import torch
@@ -248,9 +249,10 @@ MOE_LAYERS = 4  # mixtral_8x7b's 32 layers cut to 4: 46.7 B params do not fit 80
 MOE_TOKENS = 1024  # tokens of the one-layer card-vs-CPU check
 MOE_FP32_TOL = 1e-4  # card vs CPU in fp32 (TF32 off): summation order only
 MESH_TIMED = 3  # timed steps of the sharded MoE step (after TRAIN_WARMUP)
-# the pipelined step: llama2_7b_lora's 32 layers as 4 stages of 8, the
-# batch of 8 as 8 microbatches of one row
-PIPE_STAGES, PIPE_MICRO = 4, 8
+# the pipelined step: llama2_7b_lora at full width with its 32 layers cut
+# to 16 (the phase's depth; it took 112.5 s of the script at 32), as 4
+# stages of 4, the batch of 8 as 8 microbatches of one row
+PIPE_STAGES, PIPE_MICRO, PIPE_LAYERS = 4, 8, 16
 RING_N = 4  # ranks of the ring driven on one card
 # the paged batcher (llama3_8b, bf16): pages of 64 tokens, 8 slots of
 # MAX_LEN, so 1 + 8 * 32 = 257 pages; the prefix phase shares a prompt of
@@ -3472,36 +3474,62 @@ def mesh_train_steps(smi, unsharded) -> dict:
     return launches
 
 
-def pipeline_train_steps(smi, unsharded) -> dict:
-    """The pipelined training path at full width: llama2_7b_lora (32
-    layers, bf16 params, B=8 x 2048, remat, train_steps' seed and batch)
-    through make_train_step(cfg, opt, None, None, True, PIPE_MICRO,
-    stages=PIPE_STAGES): every stage's forward and backward loops
-    (ray_tpu_torch/ops/pipeline.py) run on this card, one stage after
+def pipeline_train_steps(smi) -> dict:
+    """The pipelined training path at full width: llama2_7b_lora cut to
+    PIPE_LAYERS layers (bf16 params, B=8 x 2048, remat, train_steps' seed
+    and batch) through make_train_step(cfg, opt, None, None, True,
+    PIPE_MICRO, stages=PIPE_STAGES): every stage's forward and backward
+    loops (ray_tpu_torch/ops/pipeline.py) run on this card, one stage after
     another, through the in-process transport; the card holds one NCCL
     rank, so the P2P transport is held on the CPU under gloo
-    (tests/test_torch_pipeline*.py). 2 warm-up, MESH_TIMED timed and 1
-    profiled step. Each step launches each flash kernel PIPE_MICRO times
-    the unpipelined step's count, each on one microbatch, and sends
-    2 (stages - 1) PIPE_MICRO activations and their grads. Step 0's loss
-    and grad norm are held against ``unsharded`` (train_steps' numbers)
-    within twice the distance of that step from the same step in fp32
-    (the unpipelined step on fp32 params, run here after the pipelined
-    one). Returns one step's kernel launches."""
+    (tests/test_torch_pipeline*.py). The unpipelined step at the same depth
+    first (TRAIN_WARMUP + MESH_TIMED steps: its time and step 0's numbers),
+    then the pipelined one: 2 warm-up, MESH_TIMED timed and 1 profiled step.
+    Each step launches each flash kernel PIPE_MICRO times the unpipelined
+    step's count, each on one microbatch, and sends 2 (stages - 1)
+    PIPE_MICRO activations and their grads. Step 0's loss and grad norm are
+    held against the unpipelined step's within twice the distance of that
+    step from the same step in fp32 (the unpipelined step on fp32 params,
+    run last). Returns one step's kernel launches."""
     from ray_tpu_torch import parallel as P
     from ray_tpu_torch import train as S
     from ray_tpu_torch.models import transformer as T
     from ray_tpu_torch.ops import attention as A
 
     with phase("pipeline_train_steps"):
-        cfg = T.config("llama2_7b_lora", param_dtype=torch.bfloat16)
+        cfg = T.config("llama2_7b_lora", param_dtype=torch.bfloat16, layers=PIPE_LAYERS)
         opt = S.default_optimizer(cfg)
-        state = S.init_state(cfg, opt, seed=SEED, device="cuda")
-        run = S.make_train_step(cfg, opt, None, None, True, PIPE_MICRO, device="cuda",
-                                stages=PIPE_STAGES)
         tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
             0, cfg.vocab_size, (TRAIN_BATCH, MAX_LEN))).cuda()
         batch = {"tokens": tokens}
+        peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
+        # the unpipelined step at this depth: the reference of step 0 and of
+        # the pipeline's time
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+        plain_run = S.make_train_step(cfg, opt, device="cuda")
+        plain_ms, plain_metrics = [], []
+        for _ in range(TRAIN_WARMUP + MESH_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = plain_run(state, batch)
+            torch.cuda.synchronize()
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
+            plain_metrics.append({k: float(v) for k, v in m.items()})
+        plain_med = sorted(plain_ms[TRAIN_WARMUP:])[MESH_TIMED // 2]
+        plain_tok_s = TRAIN_BATCH * MAX_LEN / (plain_med / 1e3)
+        unpipelined = {"step_ms_median": plain_med, "step_ms_timed": plain_ms[TRAIN_WARMUP:],
+                       "tokens_per_s": plain_tok_s,
+                       "mfu_6n": 6 * cfg.num_params() * plain_tok_s / peak,
+                       "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del state, plain_run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        state = S.init_state(cfg, opt, seed=SEED, device="cuda")
+        run = S.make_train_step(cfg, opt, None, None, True, PIPE_MICRO, device="cuda",
+                                stages=PIPE_STAGES)
         # forward + remat re-run, one backward: per layer and microbatch
         want = {"flash_fwd": 2 * cfg.layers * PIPE_MICRO,
                 "flash_bwd_dq": cfg.layers * PIPE_MICRO,
@@ -3551,7 +3579,6 @@ def pipeline_train_steps(smi, unsharded) -> dict:
         timed = sorted(step_ms[TRAIN_WARMUP:])
         med = timed[len(timed) // 2]
         tok_s = TRAIN_BATCH * MAX_LEN / (med / 1e3)
-        peak = 756e12 if "PCIe" in torch.cuda.get_device_name(0) else 989e12
         prof = profiled(lambda: run(state, batch), top=16)
         emit({"profile": "pipeline_train_step", "card": smi, **prof})
         torch.cuda.synchronize()
@@ -3560,7 +3587,7 @@ def pipeline_train_steps(smi, unsharded) -> dict:
         torch.cuda.empty_cache()
         # the unpipelined step's own bf16-vs-fp32 distance, at step 0
         t0 = time.perf_counter()
-        cfg32 = T.config("llama2_7b_lora", dtype=torch.float32, param_dtype=torch.float32)
+        cfg32 = T.config(cfg, dtype=torch.float32, param_dtype=torch.float32)
         opt32 = S.default_optimizer(cfg32)
         st32 = S.init_state(cfg32, opt32, seed=SEED, device="cuda")
         _, m32 = S.make_train_step(cfg32, opt32, device="cuda")(st32, batch)
@@ -3570,7 +3597,7 @@ def pipeline_train_steps(smi, unsharded) -> dict:
         del st32, m32
         gc.collect()
         torch.cuda.empty_cache()
-        ref = unsharded["metrics"][0]
+        ref = plain_metrics[0]
         keys = ("loss", "grad_norm")
         gap = {k: abs(ref[k] - fp32[k]) for k in keys}
         diff = {k: abs(metrics[0][k] - ref[k]) for k in keys}
@@ -3589,8 +3616,7 @@ def pipeline_train_steps(smi, unsharded) -> dict:
               "device_idle_share": prof["device_idle_share"],
               "device_idle_share_of_median": max(0.0, 1 - prof["device_busy_ms"] / med),
               "launches_per_step": launches, "sends_per_step": sends,
-              "unpipelined": {k: unsharded[k] for k in (
-                  "step_ms_median", "tokens_per_s", "mfu_6n", "peak_allocated_bytes")},
+              "unpipelined": unpipelined,
               "step0": {"pipelined": {k: metrics[0][k] for k in keys},
                         "unpipelined": {k: ref[k] for k in keys},
                         "unpipelined_fp32": {k: fp32[k] for k in keys},
@@ -3998,6 +4024,19 @@ RL_DRIVERS = {  # name: (config class, fields): 2 runner actors each, hidden RL_
     "sac": ("SACConfig", {"num_env_runners": 2, "rollout_fragment_length": 128,
                           "learning_starts": 256}),
 }
+# objstore_collectives: the JAX package's collective row at its own size
+# (scale_bench.py bench_collective): 8 ranks on one host, 8 MiB fp32
+# allreduces, 2 warm-up ops and 30 timed
+OBJSTORE_WORLD, OBJSTORE_ELEMS, OBJSTORE_WARM, OBJSTORE_OPS = 8, (8 << 20) // 4, 2, 30
+# sebulba: the JAX package's 2-actor point (scale_bench.py bench_rl): 2 pod
+# actors, 1 learner on the card, fragments of 64 steps, 64 updates a
+# train(), 8 fragments a pump, weights pushed every 16 updates; env steps/s
+# over SEBULBA_FRAMES frames of train() calls after the first, as its
+# _rl_measure times them; SEBULBA_REPLAY fragments for the card-CPU replay
+SEBULBA = dict(num_actors=2, num_learners=1, rollout_fragment_length=64,
+               updates_per_train=64, pump_fragments=8, weight_sync_interval=16,
+               env="CartPole-v1", hidden=RL_HIDDEN, seed=SEED)
+SEBULBA_FRAMES, SEBULBA_REPLAY, SEBULBA_UPDATE_TIMED = 16384, 16, 50
 
 
 class CollectiveMember:
@@ -4261,10 +4300,335 @@ def rl_drivers(rt, smi) -> dict:
     return launches
 
 
+def objstore_input(rank: int) -> np.ndarray:
+    return np.random.RandomState(SEED + rank).standard_normal(OBJSTORE_ELEMS).astype(np.float32)
+
+
+class ObjstoreRank:
+    """objstore_collectives' rank: a member of an OBJSTORE group, its input
+    drawn from the seed, every peer's redrawn to hold the results against
+    numpy."""
+
+    def __init__(self, rank, world, group):
+        from ray_tpu_torch.util import collective as col
+
+        self.rank, self.world, self.group = rank, world, group
+        col.init_collective_group(world, rank, backend="objstore", group_name=group)
+
+    def run(self, device, n_ops: int) -> dict:
+        """The stream of ``n_ops`` allreduces (each op timed alone, each result held
+        against numpy's sum of the stacked inputs, bit for bit), then one
+        allreduce of this rank's input as a torch tensor on ``device``
+        (numpy when None), broadcast from rank 3, allgather, reducescatter,
+        send/recv round the ring and a barrier, each exact. Records the
+        route each op ran on (its collective_op event) beside the one the
+        policy's table gives."""
+        from ray_tpu_torch.observability.events import local_events
+        from ray_tpu_torch.ops import attention as A
+        from ray_tpu_torch.util import collective as col
+        from ray_tpu_torch.util.collective.v2 import select_algorithm
+
+        parts = [objstore_input(r) for r in range(self.world)]
+        mine, total = parts[self.rank], np.sum(np.stack(parts), axis=0)
+        g = col.collective._groups[self.group]
+        routes, exact = {}, {}
+
+        def ran(op):
+            ev = local_events("collective_op")[-1]
+            routes[op] = {"ran": ev["algo"], "codec": ev.get("codec"),
+                          "table": select_algorithm(mine.nbytes, mine.dtype, g._topology,
+                                                    g._policy2, op)}
+
+        for _ in range(OBJSTORE_WARM):
+            exact.setdefault("warm", True)
+            exact["warm"] &= bool(np.array_equal(col.allreduce(mine, self.group), total))
+        op_s, equal = [], 0
+        for _ in range(n_ops):
+            t0 = time.perf_counter()
+            out = col.allreduce(mine, self.group)
+            op_s.append(time.perf_counter() - t0)
+            equal += bool(np.array_equal(out, total))
+        ran("allreduce")
+        phases = local_events("collective_op")[-1]["phases"]
+        x = mine if device is None else torch.from_numpy(mine).to(device)
+        out = col.allreduce(x, self.group)
+        exact["allreduce_tensor_input"] = isinstance(out, np.ndarray) and \
+            bool(np.array_equal(out, total))
+        exact["broadcast"] = bool(np.array_equal(col.broadcast(mine, 3, self.group), parts[3]))
+        ran("broadcast")
+        got = col.allgather(mine, self.group)
+        exact["allgather"] = len(got) == self.world and all(
+            np.array_equal(a, b) for a, b in zip(got, parts))
+        ran("allgather")
+        shard = col.reducescatter(mine.reshape(2048, -1), self.group)
+        exact["reducescatter"] = bool(np.array_equal(
+            shard, np.array_split(total.reshape(2048, -1), self.world)[self.rank]))
+        ran("reducescatter")
+        nxt, prv = (self.rank + 1) % self.world, (self.rank - 1) % self.world
+        col.send(mine, nxt, self.group)
+        exact["send_recv"] = bool(np.array_equal(col.recv(prv, self.group), parts[prv]))
+        routes["send_recv"] = {"ran": "object", "table": "object (p2p: the rendezvous)"}
+        col.barrier(self.group)
+        col.destroy_collective_group(self.group)
+        return {"rank": self.rank, "op_s": op_s, "stream_s": sum(op_s),
+                "stream_equal": equal, "exact": exact, "routes": routes,
+                "last_op_phases_s": phases, "tensor_input": str(x.device) if device else None,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "launches": read_launches(A)}
+
+
+def objstore_collectives(rt, smi, device="cuda") -> dict:
+    """The OBJSTORE backend at the JAX package's collective row: an
+    OBJSTORE_WORLD-rank group of member actors on this node (num_cpus=0;
+    rank 0 leases the card, num_gpus=1, for its CUDA input), a stream of
+    OBJSTORE_OPS 8 MiB fp32 allreduces after OBJSTORE_WARM warm-up ops.
+    Gates: every result bit-equal to numpy's sum of the stacked inputs;
+    broadcast, allgather, reducescatter and send/recv exact; rank 0's
+    CUDA tensor input giving the same sum, as numpy (``device="cpu"``: a
+    CPU tensor and no lease, for a rehearsal). Prints sustained GB/s
+    (8 MiB x ops over the slowest rank's summed op time; the aggregate
+    over all ranks beside it), each op's route and the last op's phases.
+    Returns the path's flash launches (none: host collectives)."""
+    from ray_tpu_torch.ops import attention as A
+
+    member = rt.remote(num_cpus=0)(ObjstoreRank)
+    with phase("objstore_collectives"):
+        # ---- the main path: counts from 0, read right after --------------
+        reset_launches(A)
+        card = device == "cuda"
+        ws = [(member.options(num_gpus=1) if r == 0 and card else member).remote(
+            r, OBJSTORE_WORLD, "objstore_smoke") for r in range(OBJSTORE_WORLD)]
+        try:
+            t0 = time.perf_counter()
+            outs = rt.get([w.run.remote(device if r == 0 else None, OBJSTORE_OPS)
+                           for r, w in enumerate(ws)], timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            for w in ws:
+                rt.kill(w)
+        launches = {k: read_launches(A)[k] + sum(o["launches"][k] for o in outs)
+                    for k in COUNTERS}
+        # ---- end of the main path ----------------------------------------
+        nbytes = OBJSTORE_ELEMS * 4
+        slowest = max(o["stream_s"] for o in outs)
+        row = {"world_size": OBJSTORE_WORLD, "ops": OBJSTORE_OPS, "payload_mb": nbytes / 2**20,
+               "sustained_gb_s": nbytes * OBJSTORE_OPS / slowest / 1e9,
+               "aggregate_gb_s": nbytes * OBJSTORE_OPS * OBJSTORE_WORLD / slowest / 1e9,
+               "op_ms_median": 1e3 * float(np.median([t for o in outs for t in o["op_s"]])),
+               "wall_s": wall, "routes": outs[0]["routes"],
+               "last_op_phases_s": outs[0]["last_op_phases_s"],
+               "stream_equal": [o["stream_equal"] for o in outs],
+               "exact": {k: all(o["exact"][k] for o in outs) for k in outs[0]["exact"]},
+               "tensor_input": outs[0]["tensor_input"],
+               "tensor_input_rank_visible": outs[0]["visible"], "launches": launches,
+               "clock": "host, per op", "card": smi}
+        emit(row)
+        if not (all(v == OBJSTORE_OPS for v in row["stream_equal"])
+                and all(row["exact"].values())
+                and (not card or (outs[0]["tensor_input"] == "cuda:0"
+                                  and outs[0]["visible"] == "0"))
+                and all(r_["ran"] == r_["table"] for op, r_ in row["routes"].items()
+                        if op != "send_recv")):
+            raise AssertionError(f"objstore_collectives: {row}")
+    return launches
+
+
+def rl_measure(algo, min_frames: int) -> dict:
+    """The JAX package's _rl_measure (scale_bench.py): env steps/s over
+    train() calls after the first, until min_frames frames; Sebulba counts
+    num_env_steps_trained (cumulative), IMPALA num_env_steps_sampled (a
+    call's). Returns the results of every call too."""
+    first = algo.train()
+    cumulative = "num_env_steps_trained" in first
+    base = first.get("num_env_steps_trained", 0)
+    t0 = time.perf_counter()
+    frames, results = 0, [first]
+    while frames < min_frames:
+        r = algo.train()
+        results.append(r)
+        frames = r["num_env_steps_trained"] - base if cumulative \
+            else frames + r["num_env_steps_sampled"]
+    wall = time.perf_counter() - t0
+    return {"frames": int(frames), "wall_s": wall, "steps_per_s": frames / wall,
+            "episode_return_mean": float(r.get("episode_return_mean", 0.0)),
+            "results": results}
+
+
+def learner_facts(self):
+    """Read in a Sebulba learner's process (``__ray_call__``): where its
+    params live and which card it leased, and its flash launches."""
+    from ray_tpu_torch.ops import attention as A
+
+    return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "param_device": str(next(iter(self.inner.params["pi"].values())).device),
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "allocated_bytes": torch.cuda.memory_allocated() if torch.cuda.is_initialized()
+            else 0, "launches": read_launches(A)}
+
+
+def pod_actor_facts(self):
+    return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def sebulba_replay(cfg, device="cuda") -> dict:
+    """The deterministic replay: a pod actor in this process, over
+    in-process channels, makes SEBULBA_REPLAY fragments with the card
+    learner's init weights; the same fragments in the same order go to a
+    learner on ``device`` and one on the CPU started from the same params
+    (Adam fresh on both). Returns the largest param and metric
+    differences, and an update's ms on the card (median of
+    SEBULBA_UPDATE_TIMED, host clock, synchronized) on the replay's last
+    fragment."""
+    import dataclasses as dc
+
+    from ray_tpu_torch.experimental.channel import TensorChannel
+    from ray_tpu_torch.rllib.podracer import codec
+    from ray_tpu_torch.rllib.podracer.sebulba import _PodActorImpl, _PodLearnerImpl
+    from ray_tpu_torch.rllib.rollout import worker_seed
+
+    obs_dim, acts = 4, 2
+    cfg_dict = dc.asdict(cfg)
+    card = _PodLearnerImpl(dict(cfg_dict), obs_dim, acts, device=device)
+    cpu = _PodLearnerImpl(dict(cfg_dict), obs_dim, acts, device="cpu")
+    cpu.inner.set_weights(card.get_params_np())
+    spec = codec.FragmentSpec(cfg.rollout_fragment_length, obs_dim)
+    uid = f"smk{uuid.uuid4().hex[:12]}"
+    slots = [TensorChannel((spec.flat_size,), "float32", name=f"{uid}s{k}") for k in (0, 1)]
+    weights = TensorChannel((1 + codec.flat_param_size(obs_dim, cfg.hidden, acts),), "float32",
+                            name=f"{uid}w")
+    frags = []
+    try:
+        actor = _PodActorImpl(cfg.env, cfg.hidden, worker_seed(cfg.seed, 0), 0,
+                              spec.to_dict())
+        actor.attach_stream(slots, weights.reader(0))
+        weights.write(codec.pack_params(card.inner.get_policy_np()["pi"], obs_dim, cfg.hidden,
+                                        acts, version=1), timeout=5.0)
+        readers = [sl.reader(0) for sl in slots]
+        while len(frags) < SEBULBA_REPLAY:
+            actor.pump(2)
+            for rd in readers:
+                frags.append(spec.unpack(rd.read(timeout=10.0))[2])
+    finally:
+        for ch in slots + [weights]:
+            ch.close()
+    m_diff = 0.0
+    for f in frags:
+        card._update(f)
+        cpu._update(f)
+        m_diff = max(m_diff, max(abs(card._last_metrics[k] - cpu._last_metrics[k])
+                                 for k in cpu._last_metrics))
+    p_diff = max_tree_diff(card.get_params_np(), cpu.get_params_np())
+    times = []
+    sync = torch.cuda.synchronize if card.device.type == "cuda" else (lambda: None)
+    for _ in range(SEBULBA_UPDATE_TIMED):
+        sync()
+        t0 = time.perf_counter()
+        card.inner.update(frags[-1])
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"fragments": len(frags), "max_param_diff": p_diff, "max_metric_diff": m_diff,
+            "tol": RL_TOL, "update_ms_median": float(np.median(times)),
+            "update_device": str(card.device)}
+
+
+def sebulba(rt, smi, device=None) -> dict:
+    """Sebulba at the JAX package's 2-actor point (SEBULBA): 2 pod actors
+    (worker processes, no card) streaming through the tensor channels into
+    1 learner that leases the card through a SlicePlacementGroup. Gates on
+    every train(): 0 order errors and 0 app errors, num_env_steps_trained
+    = updates x 64, both actors live, updates monotone; the learner's
+    process holds the card (params on cuda:0, CUDA_VISIBLE_DEVICES "0",
+    memory allocated, not this process) and the pod actors hold none;
+    after kill_learner(0) the respawn restores from the checkpoint
+    (learner_restarts 1) and keeps stepping; the card-CPU replay within
+    RL_TOL. Prints env steps/s over the timed train() calls (the first
+    excluded), the learner's stage_s, an update's ms on the card and the
+    ratio to the port's IMPALA over one runner on the card, measured the
+    same way. ``device="cpu"`` keeps every learner on the CPU and skips the
+    card's gates (a rehearsal). Returns the path's flash launches (none)."""
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import IMPALAConfig
+    from ray_tpu_torch.rllib.podracer import SebulbaConfig
+
+    with phase("sebulba"):
+        cfg = SebulbaConfig(**SEBULBA)
+        # ---- the main path: counts from 0, read right after --------------
+        reset_launches(A)
+        t0 = time.perf_counter()
+        algo = cfg.build(device=device)
+        build_s = time.perf_counter() - t0
+        try:
+            learner_before = rt.get(algo.learners[0].__ray_call__.remote(learner_facts),
+                                    timeout=300)
+            pods = rt.get([slot.handle.__ray_call__.remote(pod_actor_facts)
+                           for slot in algo.fleet.actors.values()], timeout=300)
+            measured = rl_measure(algo, SEBULBA_FRAMES)
+            results = measured.pop("results")
+            learner = rt.get(algo.learners[0].__ray_call__.remote(learner_facts), timeout=300)
+            algo.kill_learner(0)
+            t0 = time.perf_counter()
+            post = [algo.train(), algo.train()]
+            respawn_s = time.perf_counter() - t0
+            respawned = rt.get(algo.learners[0].__ray_call__.remote(learner_facts),
+                               timeout=300)
+        finally:
+            algo.stop()
+        launches = {k: read_launches(A)[k] + learner["launches"][k]
+                    + respawned["launches"][k] for k in COUNTERS}
+        # ---- end of the main path ----------------------------------------
+        steps = [r["num_updates"] for r in results]
+        bad = [r for r in results
+               if r["order_errors"] or r["app_errors"] or sorted(r["live_actors"]) != [0, 1]
+               or r["num_env_steps_trained"] != r["num_updates"] * cfg.rollout_fragment_length]
+        stage_s = results[-1]["learners"][0]["stage_s"]
+        upd = stage_s.get("podracer.update", {})
+        replay = sebulba_replay(cfg, device or "cuda")
+        impala = IMPALAConfig(num_env_runners=1, rollout_fragment_length=64,
+                              fragments_per_iteration=8, hidden=RL_HIDDEN,
+                              seed=SEED).build(device=device or "cuda")
+        try:
+            impala_m = rl_measure(impala, SEBULBA_FRAMES)
+            impala_m.pop("results")
+        finally:
+            impala.stop()
+        row = {"config": SEBULBA, "build_s": build_s,
+               "env_steps_per_s": measured["steps_per_s"], "frames": measured["frames"],
+               "wall_s": measured["wall_s"], "train_calls": len(results),
+               "updates": steps, "episode_return_mean": measured["episode_return_mean"],
+               "stage_s": stage_s,
+               "stage_update_ms_mean": 1e3 * upd["s"] / upd["n"] if upd.get("n") else None,
+               "update_ms_median_card": replay["update_ms_median"],
+               "impala_1_runner_steps_per_s": impala_m["steps_per_s"],
+               "sebulba_vs_impala": measured["steps_per_s"] / impala_m["steps_per_s"],
+               "learner": learner_before, "learner_after": learner, "pod_actors": pods,
+               "after_kill": {k: post[-1][k] for k in ("num_updates", "learner_restarts",
+                                                       "app_errors", "order_errors",
+                                                       "live_actors")},
+               "after_kill_updates": [r["num_updates"] for r in post],
+               "respawn_s": respawn_s, "respawned": respawned, "replay": replay,
+               "launches": launches, "clock": "host", "card": smi}
+        emit(row)
+        def holds(f):  # the learner's process, not this one, holds the card
+            return device is not None or (f["param_device"] == "cuda:0" and f["visible"] == "0"
+                                          and f["allocated_bytes"] > 0 and f["pid"] != os.getpid())
+
+        if bad or steps != sorted(set(steps)) \
+                or not all(map(holds, (learner_before, learner, respawned))) \
+                or any(p["visible"] != "" or p["cuda_initialized"] for p in pods) \
+                or post[-1]["learner_restarts"] != 1 or post[-1]["app_errors"] \
+                or post[-1]["order_errors"] \
+                or not post[1]["num_updates"] > steps[-1] - cfg.checkpoint_interval \
+                or respawned["pid"] == learner["pid"] \
+                or not replay["max_param_diff"] <= RL_TOL:
+            raise AssertionError(f"sebulba: {row}; bad results {bad}")
+    return launches
+
+
 def runtime_slice(smi, unsharded) -> dict:
-    """train_elastic, collective_actors and rl_drivers on one cluster of
-    this node (ray_tpu_torch.init(num_cpus=4)); every process of it gone
-    at the end. Returns each path's launches."""
+    """train_elastic, collective_actors, rl_drivers, objstore_collectives
+    and sebulba on one cluster of this node (ray_tpu_torch.init(num_cpus=4));
+    every process of it gone at the end. Returns each path's launches."""
     import ray_tpu_torch as rt
 
     out = {}
@@ -4276,6 +4640,8 @@ def runtime_slice(smi, unsharded) -> dict:
         out["train_elastic"] = train_elastic(rt, smi, unsharded)
         out["collective_actors"] = collective_actors(rt, smi)
         out["rl_drivers"] = rl_drivers(rt, smi)
+        out["objstore_collectives"] = objstore_collectives(rt, smi)
+        out["sebulba"] = sebulba(rt, smi)
     finally:
         rt.shutdown()
     alive = cluster_processes()
@@ -4430,7 +4796,7 @@ def main() -> int:
     mesh = mesh_train_steps(smi, train_numbers)
     gc.collect()
     torch.cuda.empty_cache()
-    pipe = pipeline_train_steps(smi, train_numbers)
+    pipe = pipeline_train_steps(smi)
     moe_vs_cpu()
     moe, moe_numbers = moe_train_steps(smi)
     moe_mesh = moe_mesh_train_steps(smi, moe_numbers)

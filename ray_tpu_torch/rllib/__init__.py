@@ -13,9 +13,10 @@ The algorithms ``PPO``, ``IMPALA``, ``DQN``, ``SAC`` and
 ``MultiAgentPPO`` (``XConfig.build()``) drive their env-runner actors
 (``SampleRunner``, PPO's ``EnvRunner``, ``MultiAgentEnvRunner``: numpy
 inference, no card) on the actor runtime and feed their learners.
-``Sebulba`` raises when used, naming ROADMAP.md Queue A item 8c,
-'Sebulba': it waits for the tensor channel. Every entry point takes
-``device``: None means the card.
+``Sebulba`` (``podracer``) streams its pod actors' fragments through
+shared-memory tensor channels into learners that each lease a card, and
+syncs several learners over the OBJSTORE collective backend. Every entry
+point takes ``device``: None means the card.
 """
 
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig

@@ -5,18 +5,11 @@ The config methods (environment / env_runners / training / build) are
 the same for every algorithm; each config dataclass inherits them and
 sets ``algo_cls`` after its algorithm class is defined. ``build`` passes
 keyword arguments on to the algorithm (the port's ``device=``).
-
-``waits_for_runtime`` makes the stand-in for a name of Sebulba (its
-actor and learner fleets over the shared-memory tensor channel,
-``experimental/channel.py``'s ``TensorChannel``), which is not ported
-yet: using it raises, naming ROADMAP.md's row.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
-
-ITEM_8C = "ROADMAP.md Queue A item 8c, 'Sebulba'"
 
 
 class AlgorithmConfigBase:
@@ -41,14 +34,3 @@ class AlgorithmConfigBase:
 
     def build(self, **kw):
         return self.algo_cls(self, **kw)
-
-
-def waits_for_runtime(name: str, what: str) -> type:
-    """A class named ``name`` whose construction raises
-    NotImplementedError: ``what`` is not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: {what} is not ported to ray_tpu_torch yet ({ITEM_8C})")
-
-    return type(name, (), {"__init__": __init__, "__doc__": f"Not ported: {what}."})

@@ -6,10 +6,11 @@ Reference surface: python/ray/util/collective/collective.py —
 `barrier`, `broadcast`, `allgather`, `reducescatter`, `send`/`recv`.
 
 Backends: NCCL (the card; the JAX package's XLA backend) and GLOO (the
-CPU), both through ``nccl_group.NCCLGroup``; ``create_collective_group``
-declares a group over actors from the driver. The JAX package's
-OBJSTORE backend (over the object store) is not ported yet: it raises
-NotImplementedError."""
+CPU), both through ``nccl_group.NCCLGroup``, and OBJSTORE, the JAX
+package's host collectives through the object store and shared memory
+(``objstore_group.ObjStoreGroup``: numpy in and out, no process group).
+``create_collective_group`` declares a group over actors from the
+driver."""
 
 from __future__ import annotations
 
@@ -117,14 +118,20 @@ def init_collective_group(
 ) -> None:
     """Declare this process a member of a collective group
     (reference: collective.py:149). ``backend`` "nccl" (the card; raises
-    without one) or "gloo" (the CPU); "objstore" is not ported."""
-    from ray_tpu_torch.util.collective.nccl_group import NCCLGroup
-
+    without one), "gloo" (the CPU) or "objstore" (host collectives over
+    the cluster runtime: needs ``ray_tpu_torch.init`` first)."""
     backend = Backend.resolve(backend)
     with _lock:
         if group_name in _groups:
             raise RuntimeError(f"Group {group_name} already initialized")
-        _groups[group_name] = NCCLGroup(world_size, rank, group_name, backend)
+        if backend == Backend.OBJSTORE:
+            from ray_tpu_torch.util.collective.objstore_group import ObjStoreGroup
+
+            _groups[group_name] = ObjStoreGroup(world_size, rank, group_name)
+        else:
+            from ray_tpu_torch.util.collective.nccl_group import NCCLGroup
+
+            _groups[group_name] = NCCLGroup(world_size, rank, group_name, backend)
 
 
 def create_collective_group(
@@ -137,16 +144,18 @@ def create_collective_group(
     """Declarative setup: make ``actors`` a collective group by invoking
     init on each (reference: collective.py:186), through the actor's own
     ``_init_collective(world_size, rank, backend, group_name)`` if it has
-    one, else ``__ray_call__``. The actors run on one node: a group of
-    several ranks joins a fresh default process group of ``world_size``
-    processes first (``bootstrap.local_process_specs``: a free port on
-    this host) in every actor that has none. Waits for every member."""
+    one, else ``__ray_call__``. On NCCL or gloo the actors run on one
+    node: a group of several ranks joins a fresh default process group of
+    ``world_size`` processes first (``bootstrap.local_process_specs``: a
+    free port on this host) in every actor that has none. An OBJSTORE
+    group needs no process group. Waits for every member."""
     import ray_tpu_torch
     from ray_tpu_torch.parallel.bootstrap import local_process_specs
 
-    backend = Backend.resolve(backend).value  # OBJSTORE raises here
+    backend = Backend.resolve(backend).value
     specs = ([dataclasses.asdict(s) for s in local_process_specs(world_size)]
-             if world_size > 1 else [None] * world_size)
+             if world_size > 1 and backend != Backend.OBJSTORE.value
+             else [None] * world_size)
     futs = [
         a._init_collective.remote(world_size, r, backend, group_name)
         if hasattr(a, "_init_collective")

@@ -4,9 +4,10 @@ Backends:
 - NCCL: collectives over a ``torch.distributed`` NCCL group, tensors on
         the card. The counterpart of the JAX package's XLA backend.
 - GLOO: the same group over gloo, tensors on the CPU.
-- OBJSTORE: the JAX package's host collectives through the object store
-        and its shared-memory v2 stack; not ported, so choosing it
-        raises.
+- OBJSTORE: host collectives through the object store with a
+        named-actor rendezvous and the shared-memory v2 stack
+        (``objstore_group.ObjStoreGroup``): numpy in and out, across
+        worker processes, no process group.
 """
 
 from __future__ import annotations
@@ -21,14 +22,7 @@ class Backend(str, enum.Enum):
 
     @classmethod
     def resolve(cls, name) -> "Backend":
-        b = cls(name) if not isinstance(name, cls) else name
-        if b == cls.OBJSTORE:
-            raise NotImplementedError(
-                "the OBJSTORE backend (over the object store) is not ported "
-                "to ray_tpu_torch yet (ROADMAP.md Queue A item 5, "
-                "'OBJSTORE'); use 'nccl' on the "
-                "card or 'gloo' on the CPU")
-        return b
+        return cls(name) if not isinstance(name, cls) else name
 
 
 class ReduceOp(str, enum.Enum):

@@ -3,6 +3,7 @@ chip_cards.py import nothing of JAX or of the JAX package, and no entry point ru
 CPU unless a caller asks for it."""
 
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -22,6 +23,7 @@ from ray_tpu_torch.models.decoding import Generator, init_cache
 from ray_tpu_torch.models.disagg_prefill import DisaggPrefillEngine
 from ray_tpu_torch.models.paged_kv import PagedBatcher
 from ray_tpu_torch.parallel import initialize_host, local_process_specs, single_device_mesh
+from ray_tpu_torch.rllib.podracer.sebulba import SebulbaConfig, _PodLearnerImpl
 from ray_tpu_torch.util.collective import init_collective_group
 from ray_tpu_torch.train import (
     RunConfig, TorchTrainer, default_optimizer, init_state, make_eval_step, make_train_step,
@@ -119,7 +121,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch.util.placement_group, ray_tpu_torch.util.scheduling_strategies, "
             "ray_tpu_torch.util.gpu, ray_tpu_torch.experimental, "
             "ray_tpu_torch.experimental.channel, ray_tpu_torch.experimental.rdt, "
-            "ray_tpu_torch.dag_compiled, ray_tpu_torch.models.disagg_prefill; "
+            "ray_tpu_torch.dag_compiled, ray_tpu_torch.models.disagg_prefill, "
+            "ray_tpu_torch.util.collective.objstore_group, ray_tpu_torch.util.collective.v2, "
+            "ray_tpu_torch.rllib.podracer.sebulba, ray_tpu_torch.rllib.podracer.codec, "
+            "ray_tpu_torch.rllib.podracer.fleet; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu', "
             "'psutil', 'cloudpickle')))")
@@ -162,7 +167,7 @@ def no_cuda(monkeypatch):
     "init_state", "make_train_step", "make_eval_step", "single_device_mesh",
     "PagedBatcher", "init_collective_group", "initialize_host", "restore_state",
     "LLMEngine_params_path", "TorchTrainer", "start_gpu_profile", "build_llm_processor",
-    "iter_torch_batches", "DisaggPrefillEngine", "DeviceTensorReader",
+    "iter_torch_batches", "DisaggPrefillEngine", "DeviceTensorReader", "PodLearner",
 ])
 def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
     cfg = T.config("debug")
@@ -194,6 +199,7 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry, tmp_path):
                                            .iter_torch_batches(batch_size=1)),
         "DisaggPrefillEngine": lambda: DisaggPrefillEngine(cfg, {}),
         "DeviceTensorReader": lambda: channel.reader().read(timeout=1),
+        "PodLearner": lambda: _PodLearnerImpl(dataclasses.asdict(SebulbaConfig()), 4, 2),
     }
     channel = DeviceTensorChannel((2,), "bfloat16")
     try:

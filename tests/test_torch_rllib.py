@@ -328,14 +328,8 @@ def test_json_round_trip_both_ways(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# The names of item 8c, Sebulba's that wait for the tensor channel, and the card
+# The names of item 8c (Sebulba's included) in local mode, and the card
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["Sebulba", "SebulbaConfig"])
-def test_item_8c_names_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue A item 8c, 'Sebulba'"):
-        getattr(trl, name)()
-
-
 @pytest.fixture
 def local_mode():
     import ray_tpu_torch as rt
@@ -343,6 +337,26 @@ def local_mode():
     rt.init(local_mode=True)
     yield
     rt.shutdown()
+
+
+@pytest.mark.parametrize("name", ["Sebulba", "SebulbaConfig"])
+def test_sebulba_names_run(local_mode, name):
+    """Sebulba, built directly or by its config's ``build``, takes two
+    training iterations in local mode with its learner on the CPU: 4
+    updates each, every fragment in order. Its config has the JAX
+    package's fields and defaults. (tests/test_torch_sebulba.py runs it on
+    a cluster.)"""
+    cfg = trl.SebulbaConfig(rollout_fragment_length=16, updates_per_train=4, hidden=(8,))
+    assert [(f.name, f.default) for f in dataclasses.fields(trl.SebulbaConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(jrl.SebulbaConfig)]
+    algo = trl.Sebulba(cfg, device="cpu") if name == "Sebulba" else cfg.build(device="cpu")
+    try:
+        results = [algo.train() for _ in range(2)]
+    finally:
+        algo.stop()
+    assert [r["num_updates"] for r in results] == [4, 8]
+    assert all(r["order_errors"] == 0 and r["app_errors"] == 0 for r in results)
+    assert results[-1]["num_env_steps_trained"] == 8 * 16
 
 
 SMALL = dict(hidden=(8,), rollout_fragment_length=16, seed=1)

@@ -8,7 +8,8 @@ cluster, held against the JAX package on the CPU:
   equal;
 - ``create_collective_group`` over 2 actors of the port's cluster on
   gloo: every op against numpy (fp32 sums 1e-6; max, min, gather,
-  broadcast and send/recv exact); OBJSTORE raises naming its row.
+  broadcast and send/recv exact), and over an OBJSTORE group of the
+  same actors.
 
 The cyclic collector stays paused while JAX's cluster runs
 (tests/test_torch_cluster_cases.py's ``collector_paused``), and runs between
@@ -92,30 +93,41 @@ NP_OPS = {"sum": lambda a: a.sum(0), "product": lambda a: a.prod(0),
           "mean": lambda a: a.mean(0)}
 
 
-def test_create_collective_group_over_actors(clusters):
+def group_ops(backend, group):
     member = rt.remote(num_cpus=1)(torch_ranks.CollectiveMember)
     actors = [member.remote() for _ in range(W.WORLD)]
     try:
-        col.create_collective_group(actors, W.WORLD, list(range(W.WORLD)), "gloo", "g")
-        out = rt.get([a.ops.remote("g", SEED) for a in actors], timeout=W.GROUP_DEADLINE)
+        col.create_collective_group(actors, W.WORLD, list(range(W.WORLD)), backend, group)
+        return rt.get([a.ops.remote(group, SEED) for a in actors], timeout=W.GROUP_DEADLINE)
     finally:
         for a in actors:
             rt.kill(a)
+
+
+def check_group_ops(out, backend):
     x = np.stack([torch_ranks.collective_input(SEED, r) for r in range(W.WORLD)])
     assert len({o["pid"] for o in out}) == W.WORLD
     for r, o in enumerate(out):
-        assert (o["rank"], o["world"], o["backend"], o["destroyed"]) == (r, W.WORLD, "gloo", False)
+        assert (o["rank"], o["world"], o["backend"], o["destroyed"]) == (r, W.WORLD, backend,
+                                                                          False)
         for op, f in NP_OPS.items():
             np.testing.assert_allclose(o[("allreduce", op)], f(x), rtol=1e-6, atol=1e-6)
             chunk = len(x[0]) // W.WORLD
+            shard = f(x)[r * chunk:(r + 1) * chunk]  # OBJSTORE: np.array_split's
             np.testing.assert_allclose(o[("reducescatter", op)],
-                                       f(x)[None, r * chunk:(r + 1) * chunk], rtol=1e-6,
+                                       shard if backend is None else shard[None], rtol=1e-6,
                                        atol=1e-6)
         np.testing.assert_array_equal(o["allgather"], x)
         np.testing.assert_array_equal(o["broadcast"], x[-1])
         np.testing.assert_array_equal(o["recv"], x[(r - 1) % W.WORLD][(r - 1) % W.WORLD])
 
 
-def test_create_collective_group_objstore_raises_naming_its_row():
-    with pytest.raises(NotImplementedError, match="Queue A item 5, 'OBJSTORE'"):
-        col.create_collective_group([], W.WORLD, [], "objstore")
+def test_create_collective_group_over_actors(clusters):
+    check_group_ops(group_ops("gloo", "g"), "gloo")
+
+
+def test_create_collective_group_objstore_over_actors(clusters):
+    """The same ops over an OBJSTORE group of the same actors: no process
+    group in any of them, numpy out, the same values (fp32 sums 1e-6;
+    max, min, gather, broadcast and send/recv exact)."""
+    check_group_ops(group_ops("objstore", "g_objstore"), None)

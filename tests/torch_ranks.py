@@ -568,26 +568,32 @@ def group_resume(config):
 class CollectiveMember:
     """An actor of ``create_collective_group``'s tests: its rank's
     ``collective_input`` through every op of ray_tpu_torch.util.collective
-    on the group it was made a member of."""
+    on the group it was made a member of (an OBJSTORE group answers in
+    numpy and stands on no process group)."""
 
     def ops(self, group, seed):
         from ray_tpu_torch.util import collective as col
 
+        def host(t):
+            if isinstance(t, torch.Tensor):
+                return t.numpy()
+            return np.stack(t) if isinstance(t, list) else t
+
         rank, world = col.get_rank(group), col.get_collective_group_size(group)
         x = collective_input(seed, rank)
         out = {"rank": rank, "world": world, "pid": os.getpid(),
-               "backend": dist.get_backend()}
+               "backend": dist.get_backend() if dist.is_initialized() else None}
         for op in ("sum", "product", "max", "min", "mean"):
-            out[("allreduce", op)] = col.allreduce(x, group, op).numpy()
-            out[("reducescatter", op)] = col.reducescatter(x, group, op).numpy()
-        out["allgather"] = col.allgather(x, group).numpy()
-        out["broadcast"] = col.broadcast(x, world - 1, group).numpy()
+            out[("allreduce", op)] = host(col.allreduce(x, group, op))
+            out[("reducescatter", op)] = host(col.reducescatter(x, group, op))
+        out["allgather"] = host(col.allgather(x, group))
+        out["broadcast"] = host(col.broadcast(x, world - 1, group))
         nxt, prv = (rank + 1) % world, (rank - 1) % world
         if rank % 2 == 0:
             col.send(x[rank], nxt, group)
-            out["recv"] = col.recv(prv, group).numpy()
+            out["recv"] = host(col.recv(prv, group))
         else:
-            out["recv"] = col.recv(prv, group).numpy()
+            out["recv"] = host(col.recv(prv, group))
             col.send(x[rank], nxt, group)
         col.barrier(group)
         col.destroy_collective_group(group)
