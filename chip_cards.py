@@ -49,7 +49,11 @@ worker, through CUDA_VISIBLE_DEVICES) and holds:
   app errors, and a kill of learner 1 right before a broadcast giving one
   group rotation and one restart with no app error; env steps/s beside
   the one-learner 2-actor point (chip_smoke.SEBULBA) measured in the same
-  run.
+  run;
+- batch inference over two nodes of one card each (data_cluster_two_cards,
+  a Cluster of its own after the one-node cluster above): llama3_8b
+  through build_llm_processor with one pool actor, then two, each engine
+  on its own physical card: rows bit-equal, rows/s of two against one.
 
 Prints JSON lines and the cards' names and power limits; any failed gate
 raises and the script exits non-zero. Without 4 CUDA devices it exits 1
@@ -539,6 +543,77 @@ def disagg_two_cards(rt, device, smi, preset="llama3_8b", max_len=C.MAX_LEN):
             raise AssertionError(f"disaggregated prefill on two cards: {row}")
 
 
+def data_cluster_two_cards(smi, device="cuda", preset="llama3_8b", max_len=C.MAX_LEN):
+    """Batch inference over two nodes of one card each: a Cluster whose
+    head and second node each own one host card (Cluster.add_node(
+    num_gpus=1): ids [0] and [1]); data_llm_batch's 12 rows in 3 blocks
+    through build_llm_processor(LLMConfig(preset, seed 0), batch_size=4)
+    first with one pool actor (one engine), then with two (concurrency=2:
+    one engine a card, each drawn from the seed in its own worker). Gates:
+    the two engines on different physical cards (their workers'
+    CUDA_VISIBLE_DEVICES), one engine a worker, the two-engine rows
+    bit-equal to the one-engine rows (chip_smoke.py's data_cluster_llm_batch
+    holds one engine against the direct engine), rows in order; on the
+    card, flash launches L a batch. Prints rows/s of two engines against
+    one. ``device="cpu"`` (fake cards, ``RAY_TPU_FAKE_GPUS=2``) rehearses
+    it at a small preset."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as D
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.llm import LLMConfig, SamplingParams, build_llm_processor
+    from ray_tpu_torch.models import transformer as T
+
+    cfg = T.config(preset, param_dtype=torch.bfloat16)
+    prompts = C.data_prompts()
+    per_block = len(prompts) // C.DATA_BLOCKS
+    config = LLMConfig(model=cfg, max_len=max_len, seed=C.SEED, tokenizer=C.IdsTokenizer(),
+                       sampling=SamplingParams(max_tokens=C.MAX_TOKENS))
+    with C.phase("data_cluster_two_cards"):
+        cluster = Cluster()
+        try:
+            cluster.add_node(num_cpus=4, num_gpus=1)
+            cluster.add_node(num_cpus=4, num_gpus=1)
+            cluster.wait_for_nodes()
+            rt.init(address=cluster.address)
+            runs = {}
+            for pool in (1, 2):
+                ds = D.from_items([{"prompt": p, "row": i} for i, p in enumerate(prompts)],
+                                  override_num_blocks=C.DATA_BLOCKS)
+                process = build_llm_processor(
+                    config, batch_size=per_block, concurrency=pool, _stats_column="stage",
+                    **({} if device == "cuda" else {"device": device, "num_gpus": 1}))
+                t0 = time.perf_counter()
+                rows = process(ds).take_all()
+                runs[pool] = (rows, time.perf_counter() - t0)
+        finally:
+            try:
+                rt.shutdown()
+            finally:
+                cluster.shutdown()
+        (one, one_s), (two, two_s) = runs[1], runs[2]
+        stages = {(r["stage"]["pid"], r["stage"]["batch"]): r["stage"] for r in two}
+        cards = {s["pid"]: s["visible"] for s in stages.values()}
+        launches = {pid: sum(s["launches"]["flash_fwd"] for s in stages.values()
+                            if s["pid"] == pid) for pid in cards}
+        row = {"rows": len(two), "one_engine_s": one_s, "two_engines_s": two_s,
+               "rows_per_s_one": len(one) / one_s, "rows_per_s_two": len(two) / two_s,
+               "two_over_one": one_s / two_s, "cards_by_worker": cards,
+               "engines_built": sorted({s["engines_built"] for s in stages.values()}),
+               "flash_fwd_by_worker": launches,
+               "tokens_equal_one_engine": [r["generated"] for r in two]
+               == [r["generated"] for r in one],
+               "rows_in_order": [r["row"] for r in two] == list(range(len(prompts))),
+               "clock": "host, synchronized", "card": smi}
+        C.emit({"data_cluster_two_cards": row})
+        if not (row["tokens_equal_one_engine"] and row["rows_in_order"]
+                and len(cards) == 2 and len(set(cards.values())) == 2
+                and row["engines_built"] == [1]
+                and (device != "cuda" or all(
+                    n == cfg.layers * sum(1 for s in stages.values() if s["pid"] == pid)
+                    for pid, n in launches.items()))):
+            raise AssertionError(f"data_cluster_two_cards: {row}")
+
+
 def one_card_step(device, smi, preset, rows, seq):
     """One card's step in this process: the model at full width (bf16,
     remat), ``rows`` rows, WARMUP + TIMED steps; its median ms and the
@@ -747,6 +822,7 @@ def main() -> int:
     finally:
         rt.shutdown()
         shutil.rmtree(out, ignore_errors=True)
+    data_cluster_two_cards(smi)  # a Cluster of its own: two nodes, a card each
     alive = C.cluster_processes()
     if alive:
         raise AssertionError(f"processes left after shutdown: {alive!r}")

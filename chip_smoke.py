@@ -250,9 +250,10 @@ MOE_TOKENS = 1024  # tokens of the one-layer card-vs-CPU check
 MOE_FP32_TOL = 1e-4  # card vs CPU in fp32 (TF32 off): summation order only
 MESH_TIMED = 3  # timed steps of the sharded MoE step (after TRAIN_WARMUP)
 # the pipelined step: llama2_7b_lora at full width with its 32 layers cut
-# to 16 (the phase's depth; it took 112.5 s of the script at 32), as 4
-# stages of 4, the batch of 8 as 8 microbatches of one row
-PIPE_STAGES, PIPE_MICRO, PIPE_LAYERS = 4, 8, 16
+# to 8 (the phase's depth; it took 112.5 s of the script at 32 and 59.5 s
+# at 16, and the script must leave room for the two-node Data phases), as
+# 4 stages of 2, the batch of 8 as 8 microbatches of one row
+PIPE_STAGES, PIPE_MICRO, PIPE_LAYERS = 4, 8, 8
 RING_N = 4  # ranks of the ring driven on one card
 # the paged batcher (llama3_8b, bf16): pages of 64 tokens, 8 slots of
 # MAX_LEN, so 1 + 8 * 32 = 257 pages; the prefix phase shares a prompt of
@@ -2755,7 +2756,10 @@ def train_steps(smi) -> dict:
               "lora_leaves_not_moved_in_every_layer": unmoved})
         if changed or unmoved:
             raise AssertionError(f"frozen leaves changed {changed}; LoRA leaves unmoved {unmoved}")
-    summary["data_train_ingest_launches"] = data_train_ingest(smi, cfg, run, state, med)
+    summary["data_train_ingest_launches"], ingest_ms = data_train_ingest(
+        smi, cfg, run, state, med)
+    summary["data_cluster_train_ingest_launches"] = data_cluster_train_ingest(
+        smi, cfg, run, state, ingest_ms)
     del state, params, frozen, lora0
     torch.cuda.empty_cache()
     return launches, summary
@@ -2795,7 +2799,8 @@ def data_llm_batch(smi) -> dict:
     Then the same plan again, warm, against the 3 direct generate calls,
     three pairs in alternating order: medians of rows/s, completion
     tokens/s and the wall ratio (every pass's tokens gated equal too).
-    Returns the launches."""
+    Returns the launches and the row (its completions are the direct
+    engine's, which data_cluster_llm_batch is held to)."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import data as D
     from ray_tpu_torch.llm import LLMConfig, SamplingParams, build_llm_processor
@@ -2804,8 +2809,7 @@ def data_llm_batch(smi) -> dict:
     from ray_tpu_torch.ops import attention as A
 
     cfg = T.config("llama3_8b", param_dtype=torch.bfloat16)
-    prompts = (prompt_texts([100, 600, 1100, 1500], SEED)
-               + prompt_texts(np.linspace(100, 1500, 8).astype(int).tolist(), SEED + 1))
+    prompts = data_prompts()
     per_block = len(prompts) // DATA_BLOCKS
     config = LLMConfig(model=cfg, max_len=MAX_LEN, seed=SEED, tokenizer=IdsTokenizer(),
                        sampling=SamplingParams(max_tokens=MAX_TOKENS))
@@ -2847,6 +2851,7 @@ def data_llm_batch(smi) -> dict:
                    "rows_per_s": len(rows) / warm_s,
                    "completion_tokens": tokens, "completion_tokens_per_s": tokens / warm_s,
                    "tokens_equal_direct": all(o == got for o in outs["direct"]),
+                   "completions": got,
                    "warm_equal_cold": all(o == got for o in outs["data"]),
                    "rows_in_order": [r["row"] for r in rows] == list(range(len(prompts))),
                    "launches": launches, "clock": "host, synchronized", "card": smi}
@@ -2863,6 +2868,132 @@ def data_llm_batch(smi) -> dict:
                 and launches == want and tokens > 0
                 and row["allocated_after"] <= before + RUNTIME_LEFT_BYTES):
             raise AssertionError(f"data_llm_batch: {row}")
+    return launches, row
+
+
+def data_prompts() -> list:
+    """data_llm_batch's 12 rows: the 4 serving prompts, then the 8."""
+    return (prompt_texts([100, 600, 1100, 1500], SEED)
+            + prompt_texts(np.linspace(100, 1500, 8).astype(int).tolist(), SEED + 1))
+
+
+def cpu_stage(batch):
+    """data_cluster_llm_batch's CPU stage, a task a block: tags each row
+    with the process and node that mapped it (the sleep makes the three
+    tasks overlap, so SPREAD leases on both nodes)."""
+    time.sleep(0.5)
+    n = len(batch["row"])
+    return dict(batch, cpu_pid=np.full(n, os.getpid()),
+                cpu_node=np.full(n, os.environ["RAY_TPU_NODE_ID"]))
+
+
+def data_cluster_llm_batch(smi, local) -> dict:
+    """data_llm_batch over a two-node Cluster on this host: the head has
+    CPUs and the card, the second node CPUs only; the driver connects by
+    address. The 12 rows in 3 blocks pass a CPU map_batches stage of
+    tasks spread over both nodes, then build_llm_processor(LLMConfig(
+    llama3_8b, seed 0), batch_size=4), whose stage is one pool actor
+    leasing the card (its worker builds the engine from the seed, all 32
+    layers), and take_all(). Gates: completions bit-equal to the direct
+    engine's generate on the same 3 batches (``local``'s, which
+    data_llm_batch held equal); rows in order; the CPU stage in worker
+    processes, not the driver's, on both nodes; one engine built, in one
+    worker that sees card 0; flash_fwd launched 32 x 3 there (the stage's
+    per-batch counts from that process, none in the driver); card memory
+    and processes back after shutdown. A second pass (a new pool actor,
+    which builds its engine again: a pool lives for one execution) is
+    held equal too. Prints cold and warm wall, rows/s and completion
+    tokens/s beside local mode's and the direct engine's. Returns the
+    launches counted in the card's worker."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as D
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.llm import LLMConfig, SamplingParams, build_llm_processor
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    cfg = T.config("llama3_8b", param_dtype=torch.bfloat16)
+    prompts = data_prompts()
+    per_block = len(prompts) // DATA_BLOCKS
+    config = LLMConfig(model=cfg, max_len=MAX_LEN, seed=SEED, tokenizer=IdsTokenizer(),
+                       sampling=SamplingParams(max_tokens=MAX_TOKENS))
+    with phase("data_cluster_llm_batch"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        used_before = total - free
+        t0 = time.perf_counter()
+        cluster = Cluster()
+        try:
+            head = cluster.add_node(num_cpus=4, num_gpus=1)
+            second = cluster.add_node(num_cpus=4)
+            cluster.wait_for_nodes()
+            rt.init(address=cluster.address)
+            up_s = time.perf_counter() - t0
+            passes, walls = [], []
+            for _ in range(2):
+                ds = D.from_items([{"prompt": p, "row": i} for i, p in enumerate(prompts)],
+                                  override_num_blocks=DATA_BLOCKS).map_batches(
+                    cpu_stage, scheduling_strategy="SPREAD")
+                process = build_llm_processor(config, batch_size=per_block,
+                                              _stats_column="stage")
+                # ---- the main path: counts from 0, read right after ----
+                reset_launches(A)
+                t0 = time.perf_counter()
+                rows = process(ds).take_all()
+                walls.append(time.perf_counter() - t0)
+                driver_launches = read_launches(A)
+                # ---- end of the main path ------------------------------
+                passes.append((rows, driver_launches))
+        finally:
+            try:
+                rt.shutdown()
+            finally:
+                cluster.shutdown()
+        card_back(used_before, "data_cluster_llm_batch")
+        (rows, driver_launches), (warm_rows, _) = passes
+        stages = {(r["stage"]["pid"], r["stage"]["batch"]): r["stage"] for r in rows}
+        launches = {name: sum(s["launches"][name] for s in stages.values())
+                    for name in COUNTERS}
+        got = [r["generated"] for r in rows]
+        tokens = sum(len(t.split()) for t in got)
+        cold_s, warm_s = walls
+        direct_s = float(np.median(local["direct_s"]))
+        local_warm_s = float(np.median(local["warm_s"]))
+        row = {"rows": len(rows), "blocks": DATA_BLOCKS, "batch_size": per_block,
+               "nodes": {"head": head.node_id, "second": second.node_id,
+                         "head_cards": head.gpu_ids, "second_cards": second.gpu_ids},
+               "cluster_up_s": up_s, "cold_s": cold_s, "warm_s": warm_s,
+               "rows_per_s_cold": len(rows) / cold_s, "rows_per_s_warm": len(rows) / warm_s,
+               "completion_tokens": tokens,
+               "completion_tokens_per_s_cold": tokens / cold_s,
+               "completion_tokens_per_s_warm": tokens / warm_s,
+               "local_cold_s": local["cold_s"], "local_warm_s": local_warm_s,
+               "direct_s": direct_s, "cold_over_local_cold": cold_s / local["cold_s"],
+               "warm_over_local_warm": warm_s / local_warm_s,
+               "warm_over_direct": warm_s / direct_s,
+               "local_rows_per_s": local["rows_per_s"],
+               "local_completion_tokens_per_s": local["completion_tokens_per_s"],
+               "tokens_equal_direct": got == local["completions"],
+               "warm_equal_cold": [r["generated"] for r in warm_rows] == got,
+               "rows_in_order": [r["row"] for r in rows] == list(range(len(prompts))),
+               "cpu_stage_pids": sorted({int(r["cpu_pid"]) for r in rows}),
+               "cpu_stage_nodes": sorted({str(r["cpu_node"]) for r in rows}),
+               "driver_pid": os.getpid(),
+               "stage_processes": sorted({(s["pid"], s["visible"], s["device"],
+                                           s["engines_built"]) for s in stages.values()}),
+               "launches": launches, "driver_launches": driver_launches,
+               "clock": "host, synchronized", "card": smi}
+        emit({"data_cluster_llm_batch": row})
+        want = {"flash_fwd": cfg.layers * DATA_BLOCKS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if not (row["tokens_equal_direct"] and row["warm_equal_cold"] and row["rows_in_order"]
+                and os.getpid() not in row["cpu_stage_pids"]
+                and set(row["cpu_stage_nodes"]) == {head.node_id, second.node_id}
+                and len(row["stage_processes"]) == 1
+                and row["stage_processes"][0][1:] == ("0", "cuda", 1)
+                and len(stages) == DATA_BLOCKS and launches == want
+                and driver_launches == {name: 0 for name in COUNTERS}):
+            raise AssertionError(f"data_cluster_llm_batch: {row}")
     return launches
 
 
@@ -2929,6 +3060,134 @@ def data_train_ingest(smi, cfg, run, state, step_ms_median) -> dict:
         emit({"profile": "data_fed_train_step", "card": smi, **prof})
         if bad:
             raise AssertionError(f"data_train_ingest: steps {bad} failed: {steps}")
+    return launches, [s["ingest_ms"] for s in steps]
+
+
+def ingest_plan(D, rows, where=None):
+    """data_cluster_train_ingest's plan: the rows in INGEST_STEPS blocks,
+    shuffled, then a map stage that tags each row with the node that
+    mapped it (``where``: the stage's scheduling strategy)."""
+    def tag(batch):
+        node = os.environ.get("RAY_TPU_NODE_ID", "0" * 7)
+        return {"tokens": batch["tokens"],  # 28 bits of the node id: an int32 column
+                "node": np.full(len(batch["tokens"]), int(node[:7], 16))}
+
+    kw = {} if where is None else {"scheduling_strategy": where}
+    return (D.from_numpy(rows, column="tokens").repartition(INGEST_STEPS)
+            .random_shuffle(seed=SEED).map_batches(tag, **kw))
+
+
+def data_cluster_train_ingest(smi, cfg, run, state, local_ingest_ms) -> dict:
+    """The train step fed by Data over a two-node Cluster, with a node
+    lost mid-stream. train_steps' state and step function; 24 rows of
+    tokens from seed 0 through ingest_plan: repartitioned into 3 blocks
+    (from_numpy gives one) and shuffled by tasks, then mapped by tasks
+    that soft node affinity places on the second node, so every block the
+    batches read lives only in that node's store until the driver pulls
+    it; iter_torch_batches(batch_size=8) feeds 3 steps. After the first
+    batch the second node is removed (no drain) and the GCS counts it
+    dead: a block a later batch needs is lost, and the driver, its owner,
+    rebuilds it from lineage (the map re-runs on the head, on the shuffle's
+    outputs, rebuilt in turn where they were lost). Gates: each batch on
+    the card, int32, bit-equal to the same plan's batches in local mode;
+    64/32/32 launches a step; finite losses; the first batch's rows mapped
+    on the second node; at least one reconstruction. Prints ingest ms a
+    batch beside data_train_ingest's (local mode) and the idle share of a
+    profiled step fed by the cluster. Returns a step's launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as D
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+
+    want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+            "flash_bwd_dkv": cfg.layers}
+    rows = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                               (INGEST_STEPS * TRAIN_BATCH, MAX_LEN))
+    with phase("data_cluster_train_ingest"):
+        rt.init(local_mode=True)
+        try:
+            expect = [torch.from_numpy(b["tokens"].astype(np.int32)) for b in
+                      ingest_plan(D, rows).iter_batches(batch_size=TRAIN_BATCH, drop_last=True)]
+        finally:
+            rt.shutdown()
+        free, total = torch.cuda.mem_get_info()
+        used_before = total - free
+        # death in 2 s (100 ms health checks, 20 misses) where the default
+        # waits 20 s: the daemons read these flags from the environment
+        fast_death = {"RAY_TPU_GCS_HEALTH_CHECK_PERIOD_MS": "100",
+                      "RAY_TPU_GCS_HEALTH_CHECK_FAILURE_THRESHOLD": "20",
+                      "RAY_TPU_RAYLET_HEARTBEAT_PERIOD_MS": "100"}
+        saved_env = {k: os.environ.get(k) for k in fast_death}
+        os.environ.update(fast_death)
+        cluster = Cluster()
+        steps, bad = [], []
+        try:
+            head = cluster.add_node(num_cpus=2, num_gpus=1)
+            second = cluster.add_node(num_cpus=6)
+            cluster.wait_for_nodes()
+            rt.init(address=cluster.address)
+            core = rt._private.worker.global_worker.core
+            ds = ingest_plan(D, rows, NodeAffinitySchedulingStrategy(second.node_id, soft=True))
+            it = ds.iter_torch_batches(batch_size=TRAIN_BATCH)
+            node_tag = {int(n.node_id[:7], 16): name for n, name in
+                        ((head, "head"), (second, "second"))}
+            for i in range(INGEST_STEPS):
+                # ---- the main path: counts from 0, read right after ------
+                reset_launches(A)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(it)
+                torch.cuda.synchronize()
+                ingest_ms = 1e3 * (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                state, m = run(state, {"tokens": batch["tokens"]})
+                torch.cuda.synchronize()
+                step_ms = 1e3 * (time.perf_counter() - t0)
+                launches = read_launches(A)
+                # ---- end of the main path --------------------------------
+                tok = batch["tokens"]
+                mapped_on = sorted({node_tag.get(int(n), "?") for n in batch["node"].tolist()})
+                equal = (tok.device.type == "cuda" and tok.dtype == torch.int32
+                         and torch.equal(tok.cpu(), expect[i]))
+                steps.append({"step": i, "ingest_ms": ingest_ms, "step_ms": step_ms,
+                              "loss": float(m["loss"]), "launches": launches,
+                              "mapped_on": mapped_on, "batch_equal_local_mode": equal})
+                if i == 0:
+                    t0 = time.perf_counter()
+                    cluster.remove_node(second)
+                    while len([n for n in rt.nodes() if n["Alive"]]) != 1:
+                        time.sleep(0.05)
+                    steps[-1]["second_node_dead_s"] = time.perf_counter() - t0
+                emit({"data_cluster_train_ingest": steps[-1]})
+                if not (equal and launches == want and np.isfinite(steps[-1]["loss"])):
+                    bad.append(i)
+            reconstructions = core.reconstructions
+            fed = ds.iter_torch_batches(batch_size=TRAIN_BATCH)
+            prof = profiled(lambda: run(state, {"tokens": next(fed)["tokens"]}), top=12)
+        finally:
+            try:
+                rt.shutdown()
+            finally:
+                cluster.shutdown()
+                for k, v in saved_env.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        card_back(used_before, "data_cluster_train_ingest")
+        summary = {"rows": len(rows), "steps": INGEST_STEPS, "blocks": INGEST_STEPS,
+                   "reconstructions": reconstructions,
+                   "ingest_ms": [s["ingest_ms"] for s in steps],
+                   "local_mode_ingest_ms": local_ingest_ms,
+                   "step_ms": [s["step_ms"] for s in steps],
+                   "losses": [s["loss"] for s in steps], "clock": "host, synchronized",
+                   "card": smi}
+        emit({"data_cluster_train_ingest_summary": summary})
+        emit({"profile": "data_cluster_fed_train_step", "card": smi, **prof})
+        if bad or reconstructions < 1 or steps[0]["mapped_on"] != ["second"]:
+            raise AssertionError(f"data_cluster_train_ingest: steps {bad} failed, "
+                                 f"{reconstructions} reconstructions: {steps}")
     return launches
 
 
@@ -4781,7 +5040,8 @@ def main() -> int:
     compiled_dag = placement_and_compiled_dag(record, smi)
     device_tensor_channel(smi)
     disagg = disagg_prefill(record, smi)
-    data_batch = data_llm_batch(smi)
+    data_batch, data_local = data_llm_batch(smi)
+    data_cluster = data_cluster_llm_batch(smi, data_local)
 
     flash_bwd_vs_plain(kernels, smi)
     ring = ring_vs_flash(smi)
@@ -4813,9 +5073,12 @@ def main() -> int:
                                    "disagg_prefill": disagg[name],
                                    "paged_serving": paged[name],
                                    "data_llm_batch": data_batch[name],
+                                   "data_cluster_llm_batch": data_cluster[name],
                                    "train_step": train[name],
                                    "data_train_ingest":
                                        train_numbers["data_train_ingest_launches"][name],
+                                   "data_cluster_train_ingest":
+                                       train_numbers["data_cluster_train_ingest_launches"][name],
                                    "tune_trials": trials[name],
                                    "trainer_fit": fit[name],
                                    "serve_from_checkpoint": serve_ckpt[name],

@@ -300,6 +300,9 @@ class _ActorDispatcher:
                         "method": payload.get("method_name", "actor_task"),
                         "ts": now,
                         "submit_ts": payload.get("submit_ts", 0.0),
+                        # set once the worker acks the enqueue: until then
+                        # the push's own reply decides (a refusal resends)
+                        "acked": False,
                     }
             try:
                 reply = await get_client(addr).acall(
@@ -347,6 +350,11 @@ class _ActorDispatcher:
                     return
                 await asyncio.sleep(0.2)
                 continue
+            with self.core._actor_pending_lock:
+                for payload, _ in batch:
+                    info = self.core._pending_actor_tasks.get(TaskID(payload["task_id"]))
+                    if info is not None:
+                        info["acked"] = True
             return
 
     def _unregister(self, batch) -> None:
@@ -438,6 +446,12 @@ class _ActorDispatcher:
                     # too: a "running" reply from the old incarnation
                     # must not park the task forever if that worker then
                     # dies without another state event.
+                    if not i.get("acked", True):
+                        # its push is in flight: a drained incarnation
+                        # refuses it and _send_batch resends it to the
+                        # new one (the JAX package fails it here as lost
+                        # when the old worker answers "unknown")
+                        continue
                     stale = now - i.get("ts", now) > self._REQUERY_AGE_S
                     if i["addr"] != current and (changed or stale):
                         await self._requery(t, i, i["addr"],
@@ -702,6 +716,9 @@ class CoreWorker(CoreRuntime):
         self._lineage_tasks: Dict[TaskID, Dict[str, Any]] = {}  # tid -> {spec, live}
         self._lineage_by_oid: Dict[ObjectID, TaskID] = {}
         self._recovery_inflight: Dict[TaskID, threading.Event] = {}
+        # tasks this owner resubmitted to rebuild a lost object (lineage
+        # reconstruction), read by tests and the card's smoke run
+        self.reconstructions = 0
         # actor state
         self._actor_addr_cache: Dict[str, Tuple[Tuple[str, int], int]] = {}  # id -> (addr, version)
         self._actor_hub = _ActorStateHub(self)
@@ -1371,24 +1388,14 @@ class CoreWorker(CoreRuntime):
             val = deserialize(entry_value[1])
         else:  # plasma
             node_id = entry_value[1]
+            view = None
             if node_id != self.node_id and not self.plasma.contains(oid):
                 self._pull_remote_object(oid, node_id)
             elif node_id == self.node_id and not self.plasma.contains(oid):
-                # maybe spilled to local disk — restore with backpressure:
-                # a "full" store (pinned live values) may free up as the
-                # user's arrays are collected
-                deadline = time.monotonic() + 60.0
-                while True:
-                    try:
-                        st = self.raylet.call(
-                            "RestoreObject", object_id_bin=oid.binary(), timeout=120
-                        ).get("status")
-                    except Exception:  # noqa: BLE001
-                        st = "absent"
-                    if st != "full" or time.monotonic() > deadline:
-                        break
-                    time.sleep(config.object_store_full_delay_ms / 1000.0)
-            [view] = self.plasma.get([oid], timeout_ms=int(config.rpc_call_timeout_s * 1000))
+                view = self._restore_local(oid)
+            if view is None:
+                [view] = self.plasma.get([oid],
+                                         timeout_ms=int(config.rpc_call_timeout_s * 1000))
             if view is None:
                 raise ObjectLostError(f"object {oid.hex()} not in local store")
             if obs_tracing.active():
@@ -1406,6 +1413,31 @@ class CoreWorker(CoreRuntime):
         if isinstance(val, BaseException):
             raise val
         return val
+
+    def _restore_local(self, oid: ObjectID):
+        """An object of this node that is not in its store: maybe spilled
+        to local disk. Restore with backpressure (a "full" store of pinned
+        live values may free up as the user's arrays are collected) and
+        pin it; an object spilled again before the pin is restored again.
+        Returns the pinned view, or None when no spill holds it."""
+        deadline = time.monotonic() + 60.0
+        while True:
+            try:
+                st = self.raylet.call(
+                    "RestoreObject", object_id_bin=oid.binary(), timeout=120
+                ).get("status")
+            except Exception:  # noqa: BLE001
+                st = "absent"
+            if st == "ok":
+                [view] = self.plasma.get([oid], timeout_ms=1000)
+                if view is not None:
+                    return view
+            elif st != "full":
+                return None
+            if time.monotonic() > deadline:
+                return None
+            if st == "full":
+                time.sleep(config.object_store_full_delay_ms / 1000.0)
 
     def _get_one(self, ref: ObjectRef, deadline: Optional[float]) -> Any:
         oid = ref.id()
@@ -2687,6 +2719,7 @@ class CoreWorker(CoreRuntime):
                 )
                 return False
             spec._recovery_attempts = attempts + 1  # type: ignore[attr-defined]
+            self.reconstructions += 1
             logger.warning(
                 "reconstructing object %s by resubmitting task %s (attempt %d)",
                 oid.hex()[:12], spec.task_id.hex()[:12], attempts + 1,

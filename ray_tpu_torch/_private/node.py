@@ -19,7 +19,7 @@ import sys
 import tempfile
 import time
 import uuid
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private.config import config
 from ray_tpu_torch._private.ids import NodeID
@@ -128,11 +128,14 @@ def spawn_raylet(
     is_head: bool = False,
     log_name: str = "raylet.log",
     labels: Optional[Dict[str, str]] = None,
+    gpu_ids: Optional[List[int]] = None,
 ) -> Tuple[subprocess.Popen, int]:
     """Spawn a raylet daemon process and wait for its port file.
 
     Shared by the single-node Node bootstrap and the multi-node test
     harness (reference: cluster_utils.Cluster add_node, cluster_utils.py:208).
+    ``gpu_ids``: the host card ids the node leases (default: its "GPU"
+    count numbered from 0).
     """
     env = dict(os.environ)
     env["RAY_TPU_CONFIG_JSON"] = config.to_json()
@@ -159,6 +162,8 @@ def spawn_raylet(
         cmd.append("--is-head")
     if labels:
         cmd.extend(["--labels-json", json.dumps(labels)])
+    if gpu_ids is not None:
+        cmd.extend(["--gpu-ids-json", json.dumps(list(gpu_ids))])
     # its own process group, which the store daemon, the zygote and every
     # worker join (none of them calls setsid): kill_process_tree ends them
     proc = subprocess.Popen(cmd, env=env, stdout=raylet_log, stderr=subprocess.STDOUT,

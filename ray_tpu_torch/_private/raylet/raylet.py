@@ -56,11 +56,17 @@ logger = logging.getLogger("ray_tpu_torch.raylet")
 # tracked as instances so leases get concrete card ids)
 # ---------------------------------------------------------------------------
 class ResourceSet:
-    def __init__(self, total: Dict[str, float]):
+    def __init__(self, total: Dict[str, float], gpu_ids: Optional[List[int]] = None):
+        """``gpu_ids``: the host card ids this node owns (a multi-node
+        cluster on one host gives each node its own); by default the
+        node's "GPU" count numbered from 0."""
         self.total = dict(total)
         self.available = dict(total)
         n_gpu = int(total.get("GPU", 0))
-        self.free_gpu_ids: List[int] = list(range(n_gpu))
+        if gpu_ids is not None and len(gpu_ids) != n_gpu:
+            raise ValueError(f"{n_gpu} GPUs but card ids {list(gpu_ids)}")
+        self.free_gpu_ids: List[int] = sorted(gpu_ids) if gpu_ids is not None \
+            else list(range(n_gpu))
 
     def can_fit(self, req: Dict[str, float]) -> bool:
         return all(self.available.get(k, 0.0) + 1e-9 >= v for k, v in req.items())
@@ -87,6 +93,11 @@ class ResourceSet:
         if ids:
             self.free_gpu_ids.extend(ids)
             self.free_gpu_ids.sort()
+
+
+# the least time a restored object is kept from spilling while its reader
+# comes to pin it (see _spill_until)
+RESTORE_GRACE_MIN_S = 0.5
 
 
 def _proc_start_time(pid: int) -> int:
@@ -264,10 +275,11 @@ class Raylet:
         is_head: bool = False,
         labels: Optional[Dict[str, str]] = None,
         session_dir: str = "",
+        gpu_ids: Optional[List[int]] = None,
     ):
         self.node_id = node_id
         self.gcs_addr = gcs_addr
-        self.resources = ResourceSet(resources)
+        self.resources = ResourceSet(resources, gpu_ids)
         self.store_socket = store_socket
         self.store_capacity = store_capacity
         self.is_head = is_head
@@ -581,6 +593,7 @@ class Raylet:
             # can't fit is infeasible outright; a labeled one may be served
             # by another matching or autoscaled node after caller retry.
             "hard_node_constraint": hard_node_constraint,
+            "allow_spillback": allow_spillback,
         }
         logger.debug(
             "lease request %s avail=%s idle=%d workers=%d",
@@ -915,6 +928,22 @@ class Raylet:
                         continue
                     target = self._pick_spillback(
                         p.request["resources"], require_available=False)
+                    if target is not None and not p.future.done():
+                        try:
+                            p.future.set_result(
+                                {"granted": False, "spillback": target})
+                        except asyncio.InvalidStateError:
+                            pass
+                        continue
+                elif p.request.get("allow_spillback") and not p.request.get("pg_id") \
+                        and not p.request.get("hard_node_constraint"):
+                    # feasible here but saturated: another node that has
+                    # room NOW takes it (a card freed there after this
+                    # request queued). The JAX package re-checks only
+                    # infeasible requests, so this one waited out its
+                    # whole lease timeout (50 s for an actor's).
+                    target = self._pick_spillback(
+                        p.request["resources"], require_available=True)
                     if target is not None and not p.future.done():
                         try:
                             p.future.set_result(
@@ -1345,13 +1374,20 @@ class Raylet:
             self._restore_grace = {
                 k: t for k, t in self._restore_grace.items() if now - t < 10.0
             }
-            for oid_bin, size, sealed, pinned in candidates:
+            # a restored object is left alone while its reader comes to pin
+            # it; when that leaves too little room, those restored more than
+            # RESTORE_GRACE_MIN_S ago go too (their reader has pinned and
+            # released them, or restores again: the JAX package waits out
+            # the whole 10 s, which stalls a reader of many spilled objects)
+            young = {k for k, t in self._restore_grace.items()
+                     if now - t < RESTORE_GRACE_MIN_S}
+            unpinned = [c for c in candidates if c[2] and not c[3]]
+            ordered = ([c for c in unpinned if c[0] not in self._restore_grace]
+                       + [c for c in unpinned
+                          if c[0] in self._restore_grace and c[0] not in young])
+            for oid_bin, size, sealed, pinned in ordered:
                 if freed >= needed_bytes:
                     break
-                if not sealed or pinned:
-                    continue
-                if oid_bin in self._restore_grace:
-                    continue  # just restored for a reader; let it pin first
                 oid = ObjectID(oid_bin)
                 if oid in transferring:
                     continue
@@ -1868,6 +1904,7 @@ def main() -> None:
     parser.add_argument("--port-file", default="")
     parser.add_argument("--log-level", default="INFO")
     parser.add_argument("--labels-json", default="")
+    parser.add_argument("--gpu-ids-json", default="")
     args = parser.parse_args()
     logging.basicConfig(level=args.log_level, format="[raylet] %(levelname)s %(message)s")
 
@@ -1900,6 +1937,7 @@ def main() -> None:
         is_head=args.is_head,
         session_dir=args.session_dir,
         labels=json.loads(args.labels_json) if args.labels_json else None,
+        gpu_ids=json.loads(args.gpu_ids_json) if args.gpu_ids_json else None,
     )
 
     async def _run():

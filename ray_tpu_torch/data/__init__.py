@@ -2,9 +2,9 @@
 ray_tpu.data; reference: ray.data).
 
 Lazy block-based datasets over the object store; per-block ops fuse into
-one function a block; the plan runs in the calling process, in local mode
-and under a cluster alike; `iter_torch_batches` is the ingest path to
-the card. Execution over remote tasks is ROADMAP.md Queue A item 11.
+one task a block; under a cluster the plan runs in worker processes on
+the streaming executor, in local mode in the calling process;
+`iter_torch_batches` is the ingest path to the card.
 """
 
 from ray_tpu_torch.data.block import Block

@@ -7,11 +7,11 @@ Reference: python/ray/data/dataset.py:202 (`Dataset`), lazy logical plan
 Design here: a Dataset is (source block refs, chain of logical ops).
 Consecutive per-block ops FUSE into one function per block (the
 reference planner's map-fusion); all-to-all ops (repartition, shuffle,
-sort, groupby) are barriers. Blocks are dicts of numpy arrays in the
-object store. The port runs the plan in the calling process, as the JAX
-package does in local mode, under a cluster too; the streaming executor
-over remote tasks is ROADMAP.md Queue A item 11.
-`iter_torch_batches` feeds the train step on the card.
+sort, groupby) are barriers. Blocks are dicts of numpy arrays riding the
+shared-memory object store. Under a cluster the plan runs in worker
+processes (map stages on the streaming executor, shuffles, reads and
+writes as tasks); in local mode, or with no cluster, the calling process
+runs it. `iter_torch_batches` feeds the train step on the card.
 """
 
 from __future__ import annotations
@@ -48,23 +48,35 @@ class _Op:
 
 
 class _MapBlocks(_Op):
-    """Per-block transform (map/map_batches/filter/flat_map fuse here)."""
+    """Per-block transform (map/map_batches/filter/flat_map fuse here).
+    ``concurrency`` (optional) caps the stage's in-flight task budget;
+    a fused chain runs at the smallest cap any member requested.
+    ``remote_args`` are its tasks' options: only stages with equal ones
+    fuse."""
 
-    def __init__(self, fn: Callable[[Block], Block], name: str):
+    def __init__(self, fn: Callable[[Block], Block], name: str,
+                 concurrency: Optional[int] = None,
+                 remote_args: Optional[Dict[str, Any]] = None):
         self.fn = fn
         self.name = name
+        self.concurrency = concurrency
+        self.remote_args = dict(remote_args or {})
 
 
 class _ActorMapBlocks(_Op):
-    """Stateful per-block transform (reference: map_operator.py:196 actor
-    pool — ``compute`` with a callable class): ``cls()`` is constructed
-    once a run of the plan, ``wrapper(instance, block)`` applies it to
-    each block. Never fuses with neighbors."""
+    """Stateful per-block transform on an actor pool (reference:
+    map_operator.py:196 actor pool — ``compute`` with a callable class):
+    ``cls()`` is constructed once per pool actor (once a run of the plan
+    in process), ``wrapper(instance, block)`` applies it to each block.
+    Never fuses with neighbors."""
 
-    def __init__(self, cls: type, wrapper: Callable, name: str):
+    def __init__(self, cls: type, wrapper: Callable, name: str,
+                 concurrency: int, remote_args: Optional[Dict[str, Any]] = None):
         self.cls = cls
         self.wrapper = wrapper
         self.name = name
+        self.concurrency = concurrency
+        self.remote_args = dict(remote_args or {})
 
 
 class _Shuffle(_Op):
@@ -109,18 +121,28 @@ class Dataset:
         batch_size: Optional[int] = None,
         fn_kwargs: Optional[Dict] = None,
         concurrency: Optional[Union[int, Tuple[int, int]]] = None,
+        num_cpus: Optional[float] = None,
+        num_gpus: Optional[float] = None,
+        resources: Optional[Dict[str, float]] = None,
+        scheduling_strategy: Any = None,
         **_ignored,
     ) -> "Dataset":
         """Apply fn to batches (reference: dataset.py:531). With
-        batch_size=None the whole block is one batch (fastest on TPU —
-        blocks are already sized for the store).
+        batch_size=None the whole block is one batch (blocks are already
+        sized for the store).
 
         ``fn`` may be a callable CLASS (reference: actor compute
-        strategy): it is constructed once and reused across blocks.
-        ``concurrency`` (an int, or the reference's (min, max)) sizes the
-        JAX package's actor pool or task budget; the plan runs in
-        process here, so it is accepted and changes nothing."""
+        strategy): it is constructed once per pool actor and reused
+        across blocks — ``concurrency`` (int, or the reference's (min,
+        max) form; we size at the max) sets the pool size, or the
+        in-flight task budget for plain functions. ``num_cpus``,
+        ``num_gpus``, ``resources`` and ``scheduling_strategy`` go into
+        the stage's task or actor options, as in Ray's ``map_batches``:
+        ``num_gpus=1`` runs each task or pool actor on a card the raylet
+        leases it (whole cards only; a fraction raises). Local mode runs
+        the stage in process and leases nothing."""
         kw = fn_kwargs or {}
+        remote_args = _remote_args(num_cpus, num_gpus, resources, scheduling_strategy)
 
         def _call_batches(call, block: Block) -> Block:
             if not block_num_rows(block):
@@ -135,13 +157,16 @@ class Dataset:
             return block_concat(outs)
 
         name = f"MapBatches({getattr(fn, '__name__', 'fn')})"
+        concurrency = _normalize_concurrency(concurrency)
         if isinstance(fn, type):
-            return self._with(_ActorMapBlocks(fn, _call_batches, name))
+            return self._with(_ActorMapBlocks(
+                fn, _call_batches, name, concurrency or 2, remote_args))
 
         def _apply(block: Block) -> Block:
             return _call_batches(fn, block)
 
-        return self._with(_MapBlocks(_apply, name))
+        return self._with(_MapBlocks(_apply, name, concurrency=concurrency,
+                                     remote_args=remote_args))
 
     def map(self, fn: Callable) -> "Dataset":
         def _apply(block: Block) -> Block:
@@ -229,7 +254,8 @@ class Dataset:
                 idx = np.linspace(0, len(vals) - 1, min(64, len(vals))).astype(int)
                 return {"s": np.asarray(vals)[idx]}
 
-            samp_refs = list(self._executor.map_refs(_sample, iter(refs)))
+            samp_refs = list(self._executor.map_refs(_sample, iter(refs),
+                                                     local=_use_local_exec()))
             sample_arrays = [
                 s["s"] for s in (ray_tpu_torch.get(r) for r in samp_refs) if s
             ]
@@ -366,27 +392,34 @@ class Dataset:
     def _iter_output_refs(self) -> Iterator[Any]:
         """Execute the plan, yielding output block refs streamingly.
 
-        Consecutive _MapBlocks fuse into one function per block; runs of
-        map stages (fused chains + actor-class stages) run in process,
-        block after block (the JAX package's local mode; its STREAMING
-        executor, reference streaming_executor.py:100, is ROADMAP.md
-        Queue A item 11). Shuffles are barriers between segments."""
+        Consecutive _MapBlocks with equal task options fuse into one task
+        per block; runs of map stages (fused chains + actor-pool stages)
+        execute on the STREAMING executor — an operator graph whose
+        stages run concurrently with per-op in-flight budgets and
+        object-store backpressure (reference: streaming_executor.py:100).
+        Shuffles are barriers between streaming segments. Local mode runs
+        all of it in process."""
         refs: Iterator[Any] = iter(self._source_refs)
         i = 0
         ops = self._ops
+        local = _use_local_exec()
         while i < len(ops):
             op = ops[i]
             if isinstance(op, (_MapBlocks, _ActorMapBlocks)):
                 # collect the maximal run of map-like stages into one
-                # segment
+                # streaming segment
                 phys: List[Any] = []
                 j = i
                 while j < len(ops):
                     if isinstance(ops[j], _MapBlocks):
-                        fused = [ops[j].fn]
+                        first = ops[j]
+                        fused = [first.fn]
+                        caps = [first.concurrency]
                         j += 1
-                        while j < len(ops) and isinstance(ops[j], _MapBlocks):
+                        while (j < len(ops) and isinstance(ops[j], _MapBlocks)
+                               and ops[j].remote_args == first.remote_args):
                             fused.append(ops[j].fn)
+                            caps.append(ops[j].concurrency)
                             j += 1
 
                         def chain(block, fns=tuple(fused)):
@@ -394,13 +427,15 @@ class Dataset:
                                 block = f(block)
                             return block
 
-                        phys.append(("fn", chain))
+                        caps = [c for c in caps if c]
+                        phys.append(("fn", chain, min(caps) if caps else None,
+                                     first.remote_args))
                     elif isinstance(ops[j], _ActorMapBlocks):
-                        phys.append(("actor", ops[j]))
+                        phys.append(("actor", ops[j], None, ops[j].remote_args))
                         j += 1
                     else:
                         break
-                refs = self._run_map_segment(phys, refs)
+                refs = self._run_map_segment(phys, refs, local)
                 i = j
             elif isinstance(op, _Shuffle):
                 in_refs = list(refs)
@@ -409,7 +444,7 @@ class Dataset:
                     part_fn = op.prepare(in_refs)
                 refs = self._executor.shuffle_refs(
                     in_refs, part_fn, op.reduce_fn,
-                    num_outputs=op.num_outputs,
+                    num_outputs=op.num_outputs, local=local,
                 )
                 i += 1
             elif isinstance(op, _Limit):
@@ -419,16 +454,38 @@ class Dataset:
                 raise TypeError(op)
         return refs
 
-    def _run_map_segment(self, phys: List[Any], refs: Iterator[Any]) -> Iterator[Any]:
-        # in process: construct actor classes once, map serially
-        out = refs
-        for kind, payload in phys:
+    def _run_map_segment(self, phys: List[Any], refs: Iterator[Any],
+                         local: bool) -> Iterator[Any]:
+        if local:
+            # in-process short circuit: construct actor classes once,
+            # map serially
+            out = refs
+            for kind, payload, _, _ in phys:
+                if kind == "fn":
+                    out = self._executor.map_refs(payload, out, local=True)
+                else:
+                    out = self._executor.map_refs(
+                        functools.partial(payload.wrapper, payload.cls()), out,
+                        local=True)
+            return out
+        from ray_tpu_torch.data._internal.streaming_executor import (
+            DEFAULT_OP_CONCURRENCY,
+            MapOp,
+            StreamingExecutor,
+        )
+
+        map_ops: List[MapOp] = []
+        for kind, payload, cap, remote_args in phys:
             if kind == "fn":
-                out = self._executor.map_refs(payload, out)
+                map_ops.append(MapOp(
+                    "map", fn=payload, concurrency=cap or DEFAULT_OP_CONCURRENCY,
+                    remote_args=remote_args))
             else:
-                out = self._executor.map_refs(
-                    functools.partial(payload.wrapper, payload.cls()), out)
-        return out
+                map_ops.append(MapOp(
+                    payload.name, actor_cls=payload.cls,
+                    actor_wrapper=payload.wrapper,
+                    concurrency=payload.concurrency, remote_args=remote_args))
+        return StreamingExecutor(map_ops).execute(refs)
 
     def iter_blocks(self) -> Iterator[Block]:
         for r in self._iter_output_refs():
@@ -481,7 +538,7 @@ class Dataset:
 
         dev = default_device(device)
         for batch in self.iter_batches(batch_size=batch_size, drop_last=drop_last):
-            cpu = {k: torch.from_numpy(np.ascontiguousarray(v, _jax_dtype(v.dtype)))
+            cpu = {k: torch.from_numpy(_writable(np.ascontiguousarray(v, _jax_dtype(v.dtype))))
                    for k, v in batch.items()}
             yield {k: v.to(dev) for k, v in shard_batch(mesh, cpu).items()}
 
@@ -564,14 +621,20 @@ class Dataset:
 
     # -- writers ---------------------------------------------------------
     def _write_files(self, path: str, fmt: str) -> List[str]:
-        """One file per output block, written in process (reference:
-        Dataset.write_parquet/write_csv)."""
+        """One file per output block, written by remote tasks (reference:
+        Dataset.write_parquet/write_csv); in process in local mode."""
         import os
 
         os.makedirs(path, exist_ok=True)
-        return [_write_block_file(ray_tpu_torch.get(r),
-                                  os.path.join(path, f"part-{i:05d}.{fmt}"), fmt)
-                for i, r in enumerate(self._iter_output_refs())]
+        local = _use_local_exec()
+        out_refs = []
+        for i, r in enumerate(self._iter_output_refs()):
+            fpath = os.path.join(path, f"part-{i:05d}.{fmt}")
+            if local:
+                out_refs.append(_write_block_file(ray_tpu_torch.get(r), fpath, fmt))
+            else:
+                out_refs.append(_write_block_task.remote(r, fpath, fmt))
+        return [p if isinstance(p, str) else ray_tpu_torch.get(p) for p in out_refs]
 
     def write_parquet(self, path: str) -> List[str]:
         return self._write_files(path, "parquet")
@@ -697,6 +760,37 @@ def _write_block_file(block: Block, path: str, fmt: str) -> str:
     return path
 
 
+_write_block_task = ray_tpu_torch.remote(_write_block_file)
+
+
+def _normalize_concurrency(c) -> Optional[int]:
+    """Accept the reference's forms: int, or (min, max) autoscaling tuple
+    (we size the pool at the upper bound)."""
+    if c is None:
+        return None
+    if isinstance(c, (tuple, list)):
+        return int(max(c))
+    return int(c)
+
+
+def _remote_args(num_cpus, num_gpus, resources, scheduling_strategy) -> Dict[str, Any]:
+    """A map stage's task or actor options from map_batches' arguments;
+    a fractional ``num_gpus`` raises here, as the runtime's leases do."""
+    args: Dict[str, Any] = {}
+    if num_cpus is not None:
+        args["num_cpus"] = num_cpus
+    if num_gpus:
+        from ray_tpu_torch._private.core_worker import _check_card_quantity
+
+        _check_card_quantity({"GPU": num_gpus})
+        args["num_gpus"] = num_gpus
+    if resources:
+        args["resources"] = dict(resources)
+    if scheduling_strategy is not None:
+        args["scheduling_strategy"] = scheduling_strategy
+    return args
+
+
 def _limit_refs(refs: Iterator[Any], n: int) -> Iterator[Any]:
     remaining = n
     for r in refs:
@@ -710,6 +804,22 @@ def _limit_refs(refs: Iterator[Any], n: int) -> Iterator[Any]:
         else:
             yield ray_tpu_torch.put(block_slice(block, 0, remaining))
             remaining = 0
+
+
+def _use_local_exec() -> bool:
+    """Local mode (or no cluster) executes the plan in-process."""
+    from ray_tpu_torch._private import worker as wm
+
+    w = wm.global_worker
+    if w is None or not w.connected:
+        return True
+    return getattr(w, "mode", None) == wm.LOCAL_MODE
+
+
+def _writable(a: np.ndarray) -> np.ndarray:
+    """A block a worker made is a read-only view of the store's shared
+    memory: a tensor must not alias it, so it is copied once."""
+    return a if a.flags.writeable else a.copy()
 
 
 def _jax_dtype(dtype: np.dtype) -> np.dtype:

@@ -2,7 +2,8 @@
 reference: python/ray/data/read_api.py).
 
 Sources create blocks eagerly-but-cheaply (refs into the object store);
-files are read one block a file, in process.
+files are read one block a file, by a task a file under a cluster (in
+process in local mode).
 """
 
 from __future__ import annotations
@@ -108,11 +109,20 @@ def _read_file(path: str, fmt: str, kwargs: Dict[str, Any]) -> Block:
     raise ValueError(f"unknown format {fmt}")
 
 
+_read_file_task = ray_tpu_torch.remote(_read_file)
+
+
 def _read_files(paths, fmt: str, suffix: str, **kwargs) -> Dataset:
     files = _expand_paths(paths, suffix)
     if not files:
         raise FileNotFoundError(f"No files found for {paths!r}")
-    return Dataset([ray_tpu_torch.put(_read_file(p, fmt, dict(kwargs))) for p in files])
+    from ray_tpu_torch.data.dataset import _use_local_exec
+
+    if _use_local_exec():
+        refs = [ray_tpu_torch.put(_read_file(p, fmt, dict(kwargs))) for p in files]
+    else:
+        refs = [_read_file_task.remote(p, fmt, dict(kwargs)) for p in files]
+    return Dataset(refs)
 
 
 def read_parquet(paths, **kwargs) -> Dataset:

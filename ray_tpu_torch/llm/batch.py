@@ -3,12 +3,15 @@ ray_tpu/llm/batch.py; reference: python/ray/llm/_internal/batch/processor/
 — vLLM engine processors).
 
 ``build_llm_processor(config)`` returns ``Dataset -> Dataset``: the
-process lazily builds ONE engine (cached per config and device) and maps
-prompt batches through it, block by block.
+engine stage is a callable class, so each pool actor (under a cluster:
+a worker process that leases its card) lazily builds ONE engine, cached
+per config and device, and maps prompt batches through it, block by
+block; in local mode the calling process does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -20,6 +23,8 @@ from ray_tpu_torch.models.decoding import SamplingParams
 # one engine per (process, config identity, device) — rebuilding the
 # engine per block would draw or load its weights every time
 _ENGINE_CACHE: Dict[tuple, Any] = {}
+# the kernels whose launch counters (ops/attention.py) the stats report
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _engine_for(config: LLMConfig, device=None):
@@ -48,19 +53,62 @@ def build_llm_processor(
     output_column: str = "generated",
     batch_size: Optional[int] = None,
     device=None,
+    num_gpus: Optional[float] = None,
+    concurrency: int = 1,
+    _stats_column: Optional[str] = None,
 ) -> Callable:
     """Returns ``process(ds) -> ds`` adding ``output_column`` with the
     completion for each row's ``prompt_column``. The engine runs on
-    ``device`` (None: the card)."""
-    device = default_device(device)
+    ``device`` (None: the card). Under a cluster the stage is a pool of
+    ``concurrency`` actors, each leasing ``num_gpus`` cards (default: one
+    for ``device=None``, none for a named device; whole cards only, a
+    fraction raises); a stage that wants a card and is given none raises,
+    it never falls back to the CPU. ``_stats_column`` is for the card's
+    smoke run and the tests: when named, it gets a dict a row with what
+    the stage's process saw for that row's batch: pid,
+    ``CUDA_VISIBLE_DEVICES``, the engine's device, the engines the process
+    holds and each flash kernel's launches during the batch."""
+    from ray_tpu_torch.data.dataset import _use_local_exec
 
-    def _infer(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        eng = _engine_for(config, device)
-        prompts = [str(p) for p in batch[prompt_column]]
-        outs = eng.generate(prompts, sampling)
-        return dict(batch, **{output_column: np.asarray(outs, object)})
+    if device is not None:
+        device = str(default_device(device))
+    elif _use_local_exec():
+        default_device(None)  # the stage runs here: no card raises now
+    if num_gpus is None:
+        num_gpus = 1 if device is None else 0
+    if num_gpus:
+        from ray_tpu_torch._private.core_worker import _check_card_quantity
+
+        _check_card_quantity({"GPU": num_gpus})
+
+    class LLMStage:
+        def __init__(self):
+            self.engine = _engine_for(config, device)
+            self.batches = 0
+
+        def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+            # this module's counters by import: the class travels by value
+            # and would carry a copy of the module's globals
+            from ray_tpu_torch.llm import batch as this
+            from ray_tpu_torch.ops import attention as A
+
+            before = {name: getattr(A, f"{name}_launches") for name in KERNELS}
+            prompts = [str(p) for p in batch[prompt_column]]
+            out = dict(batch, **{output_column: np.asarray(
+                self.engine.generate(prompts, sampling), object)})
+            if _stats_column is not None:
+                facts = {"pid": os.getpid(), "batch": self.batches,
+                         "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                         "device": str(self.engine.device),
+                         "engines_built": len(this._ENGINE_CACHE),
+                         "launches": {name: getattr(A, f"{name}_launches") - n
+                                      for name, n in before.items()}}
+                out[_stats_column] = np.asarray([dict(facts) for _ in prompts], object)
+            self.batches += 1
+            return out
 
     def process(ds):
-        return ds.map_batches(_infer, batch_size=batch_size)
+        return ds.map_batches(LLMStage, batch_size=batch_size, concurrency=concurrency,
+                              num_gpus=num_gpus)
 
     return process

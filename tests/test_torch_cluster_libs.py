@@ -4,10 +4,9 @@
 by side. Tune's Tuner runs its trials as actors in worker processes in
 both (the trainable pickled by each package's cloudpickle, the port's
 vendored copy), and the deterministic Tuner cases of
-tests/test_torch_tune.py give the same trials. The port's Data runs its
-plan in the driver's process under a cluster too (its executor over
-remote tasks is ROADMAP.md Queue A item 11), where JAX's maps blocks in
-worker processes: the same rows, and a test pins where the port's ran.
+tests/test_torch_tune.py give the same trials. Both packages' Data map
+their blocks in worker processes under a cluster: the same rows, and a
+test pins where the port's ran.
 """
 
 import os
@@ -62,7 +61,12 @@ def plan(rt, pids):
 
 
 def test_data_plan_runs_in_the_driver(clusters):
+    """The plan the driver runs: its map stage in worker processes, in the
+    port as in JAX (nothing lands in the driver's list), with the same
+    rows; a pid column names the workers'."""
     jax_pids, port_pids = [], []
     assert plan(ray_tpu_torch, port_pids) == plan(ray_tpu, jax_pids)
-    assert set(port_pids) == {os.getpid()} and len(port_pids) == 4
-    assert jax_pids == []  # JAX's map ran in its workers
+    assert port_pids == [] and jax_pids == []
+    pids = {int(r["pid"]) for r in ray_tpu_torch.data.range(8, override_num_blocks=4)
+            .map_batches(lambda b: {"pid": np.full(len(b["id"]), os.getpid())}).take_all()}
+    assert pids and os.getpid() not in pids

@@ -503,20 +503,27 @@ def test_iter_torch_batches_needs_cuda_unless_told_cpu(monkeypatch):
 
 # ---- Data under the cluster runtime ------------------------------------
 def test_cluster_execution_raises_naming_item_10b(tmp_path):
-    """The port's Data has no cluster branch (its executor over remote
-    tasks is ROADMAP.md Queue A item 11): under a cluster, ``init()``, as
-    under local mode, every op, read and write runs in the driver's
-    process (tests/test_torch_cluster_libs.py holds the rows against
-    JAX's cluster)."""
+    """Where Data's plan runs: under a cluster, ``init()``, the executor
+    maps blocks in worker processes (``local=False``, what
+    ``_use_local_exec`` picks there), and every op, read and write runs
+    as tasks; under local mode in the driver's process. The outcomes are
+    the same (tests/test_torch_data_streaming.py holds the rows against
+    JAX's)."""
+    from ray_tpu_torch.data.dataset import _use_local_exec
+
     (tmp_path / "f.txt").write_text("a\nb\n")
     for kwargs in ({"num_cpus": 1}, {"local_mode": True}):
         ray_tpu_torch.init(**kwargs)
         try:
+            local = _use_local_exec()
+            assert local == ("local_mode" in kwargs)
             pids = []
             ex = Executor()
             assert [ray_tpu_torch.get(r) for r in ex.map_refs(
-                lambda b: pids.append(os.getpid()) or b, iter([{"id": 1}]))] == [{"id": 1}]
-            assert pids == [os.getpid()]
+                lambda b: pids.append(os.getpid()) or dict(b, pid=os.getpid()),
+                iter([{"id": 1}]), local=local)] == [
+                    {"id": 1, "pid": os.getpid() if local else pids_of_workers()}]
+            assert pids == ([os.getpid()] if local else [])
             assert ray_tpu_torch.data.range(4).map_batches(lambda b: b).random_shuffle(
                 seed=0).count() == 4
             assert ray_tpu_torch.data.read_text(str(tmp_path / "f.txt")).take_all() \
@@ -525,6 +532,13 @@ def test_cluster_execution_raises_naming_item_10b(tmp_path):
             assert len(ray_tpu_torch.data.range(4).write_csv(out)) == 1
         finally:
             ray_tpu_torch.shutdown()
+
+
+class pids_of_workers:
+    """Equal to any pid but the driver's."""
+
+    def __eq__(self, pid):
+        return pid != os.getpid()
 
 
 def test_data_fed_train_step():

@@ -124,7 +124,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch.dag_compiled, ray_tpu_torch.models.disagg_prefill, "
             "ray_tpu_torch.util.collective.objstore_group, ray_tpu_torch.util.collective.v2, "
             "ray_tpu_torch.rllib.podracer.sebulba, ray_tpu_torch.rllib.podracer.codec, "
-            "ray_tpu_torch.rllib.podracer.fleet; "
+            "ray_tpu_torch.rllib.podracer.fleet, ray_tpu_torch.cluster_utils, "
+            "ray_tpu_torch.data._internal.streaming_executor; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu', "
             "'psutil', 'cloudpickle')))")

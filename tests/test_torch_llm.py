@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from ids_tokenizer import IdsTokenizer
 from ray_tpu.llm.config import LLMConfig as JLLMConfig
 from ray_tpu.llm.engine import LLMEngine as JLLMEngine
 from ray_tpu.models import transformer as JT
@@ -239,20 +240,6 @@ def test_sampling_supports():
         one = _sample(logits[1:2], gen, 0.7, 3)
         assert int(one[0]) in top3
     assert torch.equal(_sample(logits, gen, 0.0, 0), logits.argmax(-1))
-
-
-class IdsTokenizer:
-    """ByteTokenizer's encode; decode writes the ids out, so a completion's
-    text carries its exact tokens (random weights rarely emit byte ids)."""
-
-    vocab_size = 257
-    eos_token_id = 256
-
-    def encode(self, text):
-        return list(text.encode("utf-8"))
-
-    def decode(self, ids):
-        return " ".join(str(int(i)) for i in ids)
 
 
 def test_llm_processor_matches_jax(tiny_paths):

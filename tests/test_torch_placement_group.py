@@ -278,21 +278,41 @@ def test_host_group_specs_match_jax():
         get_tpu_coordinator_env_vars(got and t.host_group_specs("h:1")[0])
 
 
-def test_drain_marks_the_groups_node_draining(clusters):
+def test_drain_marks_the_groups_node_draining(clusters, tmp_path):
     """``drain`` reads the group by its ID object and drains its node:
     the GCS's node table then holds that node draining for preemption
-    (last in the file: the node takes no new work after it)."""
+    (last in the file: the node takes no new work after it). A task runs
+    on the node until the table is read, so the drain cannot finish (and
+    the node leave the table's draining state) before it is read."""
     from ray_tpu_torch._private.drain import REASON_PREEMPTION
     from ray_tpu_torch.util.gpu import SlicePlacementGroup
 
     rt = ray_tpu_torch
+    running, release = tmp_path / "running", tmp_path / "release"
+
+    @rt.remote
+    def hold():
+        running.touch()
+        deadline = time.monotonic() + 60
+        while not release.exists() and time.monotonic() < deadline:
+            time.sleep(0.05)
+
     spg = SlicePlacementGroup(gpus_per_host=1)
     assert spg.ready(timeout=30)
     info = rt.util.placement_group_table(spg.placement_group)
     node = info["bundle_nodes"][0]
-    drained = spg.drain(deadline_s=60)
-    assert drained == [node]
-    table = {n["NodeID"]: n for n in rt.nodes()}
-    assert table[node]["Draining"] and table[node]["DrainReason"] == REASON_PREEMPTION, \
-        table[node]
+    held = hold.remote()
+    deadline = time.monotonic() + 60
+    while not running.exists():
+        assert time.monotonic() < deadline, "the holding task never started"
+        time.sleep(0.05)
+    try:
+        drained = spg.drain(deadline_s=60)
+        assert drained == [node]
+        table = {n["NodeID"]: n for n in rt.nodes()}
+        assert table[node]["Draining"] and table[node]["DrainReason"] == REASON_PREEMPTION, \
+            table[node]
+    finally:
+        release.touch()
+    assert rt.get(held, timeout=60) is None
     spg.remove()
