@@ -762,7 +762,8 @@ class ClusterLlama:
         self.facts = {"cuda_initialized": torch.cuda.is_initialized(),
                       "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                       "gpu_ids": rt.get_runtime_context().get_assigned_resources()["gpu_ids"],
-                      "pid": os.getpid()}
+                      "pid": os.getpid(),
+                      "worker_id": os.environ["RAY_TPU_WORKER_ID"]}  # its log's name
         t0 = time.perf_counter()
         self.engine = LLMEngine(config)
         self.cengine = ContinuousLLMEngine(config, params=self.engine.generator.params)
@@ -834,9 +835,10 @@ def cluster_fetch_task(boxed):
 
 
 def cluster_processes() -> str:
-    """The processes of a ray_tpu_torch cluster still alive (pgrep -af)."""
-    return subprocess.run(["pgrep", "-af", "ray_tpu_torch._private"], capture_output=True,
-                          text=True).stdout.strip()
+    """The processes of a ray_tpu_torch cluster still alive (pgrep -af): its
+    daemons and workers, and a CLI head's dashboard and client server."""
+    return subprocess.run(["pgrep", "-af", r"ray_tpu_torch.(_private|dashboard|util.client)"],
+                          capture_output=True, text=True).stdout.strip()
 
 
 def card_back(used_before: int, what: str) -> None:
@@ -1020,6 +1022,225 @@ def runtime_cluster(record, smi) -> dict:
             rt.shutdown()
         card_back(used_before, "shutdown")
     return launches
+
+
+CLI_ACTOR = ("llama3_8b", "cli_cluster")  # (name, namespace) of the job's detached actor
+CLI_JOB = """\"\"\"cli_cluster's job: init() with no address (the dashboard exports
+RAY_TPU_ADDRESS), a task that reports its node, and ClusterLlama as a
+named, detached num_gpus=1 actor that outlives this driver; prints one
+line: CLI_JOB <json>.\"\"\"
+import json, pickle, sys, time
+
+import torch
+
+import ray_tpu_torch as rt
+from chip_smoke import CLI_ACTOR, ClusterLlama, read_launches, reset_launches
+from ray_tpu_torch.ops import attention as A
+
+with open(sys.argv[1], "rb") as f:
+    inputs = pickle.load(f)
+reset_launches(A)
+t0 = time.perf_counter()
+rt.init()
+out = {"init_s": time.perf_counter() - t0}
+out["node"] = rt.get(rt.remote(lambda: rt.get_runtime_context().get_node_id()).remote(),
+                     timeout=300)
+name, namespace = CLI_ACTOR
+served = rt.remote(num_gpus=1, max_concurrency=8)(ClusterLlama).options(
+    name=name, namespace=namespace, lifetime="detached").remote(inputs["config"])
+out["facts"] = rt.get(served.worker_facts.remote(), timeout=900)
+out["actor_s"] = time.perf_counter() - t0
+rt.get(served.reset_launches.remote(), timeout=60)
+t1 = time.perf_counter()
+out["tokens"] = rt.get(served.generate_tokens.remote(inputs["ids4"]), timeout=600)
+out["generate_s"] = time.perf_counter() - t1
+out["worker_launches"] = rt.get(served.launches.remote(), timeout=60)
+out["driver_launches"] = read_launches(A)
+out["driver_cuda_initialized"] = torch.cuda.is_initialized()
+print("CLI_JOB " + json.dumps(out), flush=True)
+rt.shutdown()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_cluster(record, smi) -> dict:
+    """The cluster as a user starts it: ``python -m
+    ray_tpu_torch.scripts.scripts start --head`` (GCS, raylet with its node
+    agent, dashboard, ray:// client server) in its own TMPDIR; a job
+    submitted through ray_tpu_torch.job_submission.JobSubmissionClient
+    whose init() takes no address serves llama3_8b from a named, detached
+    num_gpus=1 actor (ClusterLlama, the serving LLMConfig: tokens bit-equal
+    to ``record``'s, its flash launches counted in the actor's worker, none
+    in the job's driver, which never initializes CUDA; its task reports the
+    CLI cluster's node); then this process, as a remote driver over
+    ``ray://``, looks the actor up and sends the 8 prompts twice (texts and
+    counts equal to the direct engine's); the head's agent proxy shows the
+    actor's worker and the leased card; ``stop`` leaves no process and gives
+    the card's memory back. The path's launches are the actor's."""
+    import pickle
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import attention as A
+
+    cfg = T.config(record["config"].model)
+    reset_launches(A)
+    with phase("cli_cluster"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        used_before = total - free
+        t_phase = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="cli")  # short: the store socket's path lives under it
+        env = dict(os.environ, TMPDIR=tmp)  # the CLI's state file and sessions live here
+        env.pop("RAY_TPU_ADDRESS", None)
+        dash, client = free_port(), free_port()
+
+        def cli(*args, timeout=300):
+            done = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.scripts", *args],
+                                  env=env, capture_output=True, text=True, timeout=timeout)
+            if done.returncode:
+                raise AssertionError(f"cli {args}: exit {done.returncode}\n{done.stdout}"
+                                     f"\n{done.stderr}")
+            return done.stdout
+
+        t0 = time.perf_counter()
+        cli("start", "--head", "--num-cpus", "4", "--num-gpus", "1", "--dashboard-port",
+            str(dash), "--client-server-port", str(client))
+        start_s = time.perf_counter() - t0
+        try:
+            status = json.loads(cli("status"))
+            nodes = status["nodes"]
+            emit({"cli_start_s": start_s, "total_resources": status["total_resources"],
+                  "nodes": len(nodes), "agent_port": nodes[0].get("AgentPort")})
+            if status["total_resources"].get("GPU") != 1 or len(nodes) != 1 or \
+                    not nodes[0].get("AgentPort"):
+                raise AssertionError(f"status after start --head: {status}")
+            node_id = nodes[0]["NodeID"]
+
+            # ---- a job serves llama3_8b from a detached actor ------------
+            inputs = os.path.join(tmp, "inputs.pkl")
+            with open(inputs, "wb") as f:
+                pickle.dump({"config": record["config"], "ids4": record["ids4"]}, f)
+            script = os.path.join(tmp, "cli_cluster_job.py")
+            with open(script, "w") as f:
+                f.write(CLI_JOB)
+            jobs = JobSubmissionClient(f"http://127.0.0.1:{dash}")
+            t1 = time.perf_counter()
+            sid = jobs.submit_job(entrypoint=f"{sys.executable} {script} {inputs}")
+            while jobs.get_job_status(sid) not in JobStatus.TERMINAL:
+                if time.perf_counter() - t1 > 900:
+                    raise AssertionError(f"job {sid} still {jobs.get_job_status(sid)}")
+                time.sleep(0.2)
+            job_s = time.perf_counter() - t1
+            state, logs = jobs.get_job_status(sid), jobs.get_job_logs(sid)
+            lines = [ln for ln in logs.splitlines() if ln.startswith("CLI_JOB ")]
+            if state != JobStatus.SUCCEEDED or len(lines) != 1:
+                raise AssertionError(f"job {sid} {state}: {jobs.get_job_info(sid)}\n{logs[-4000:]}")
+            job = json.loads(lines[0][len("CLI_JOB "):])
+            facts = job["facts"]
+            emit({"job_state": state, "submit_to_succeeded_s": job_s, "job_init_s": job["init_s"],
+                  "job_actor_ready_s": job["actor_s"], "actor_build_s": facts["build_s"],
+                  "job_generate_s": job["generate_s"],
+                  "tokens_equal_serving": job["tokens"] == record["tokens"],
+                  "worker_launches": job["worker_launches"],
+                  "driver_launches": job["driver_launches"],
+                  "driver_cuda_initialized": job["driver_cuda_initialized"],
+                  "task_node_is_cli_node": job["node"] == node_id, "actor_worker": facts})
+            zero = {name: 0 for name in COUNTERS}
+            gen_launches = job["worker_launches"]
+            if job["tokens"] != record["tokens"] or gen_launches != {
+                    "flash_fwd": cfg.layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} or \
+                    job["driver_launches"] != zero or job["driver_cuda_initialized"] or \
+                    job["node"] != node_id or facts["cuda_initialized"] or \
+                    facts["visible"] != "0" or facts["gpu_ids"] != [0]:
+                raise AssertionError(f"the job's actor: {job}")
+
+            # ---- a remote driver over ray:// -----------------------------
+            t2 = time.perf_counter()
+            rt.init(address=f"ray://127.0.0.1:{client}")
+            try:
+                connect_s = time.perf_counter() - t2
+                served = rt.get_actor(*CLI_ACTOR)
+                if rt.get(served.worker_facts.remote(), timeout=60)["pid"] != facts["pid"]:
+                    raise AssertionError("the remote driver's actor is not the job's")
+                rt.get(served.reset_launches.remote(), timeout=60)
+                rounds, before = [], {"finished": 0, "tokens_out": 0, "admitted": 0}
+                for _ in range(2):
+                    t3 = time.perf_counter()
+                    texts = rt.get([served.submit.remote(p) for p in record["prompts8"]],
+                                   timeout=900)
+                    remote_s = time.perf_counter() - t3
+                    stats = rt.get(served.stats.remote(), timeout=60)
+                    got = {k: stats[k] - before[k] for k in before}
+                    before = {k: stats[k] for k in before}
+                    rounds.append(remote_s)
+                    emit({"remote_driver_continuous_s": remote_s,
+                          "direct_round_s": record["round_s"],
+                          "remote_over_direct": remote_s / record["round_s"], "round": got,
+                          "texts_equal_serving": texts == record["texts"]})
+                    if texts != record["texts"] or got["finished"] != len(record["prompts8"]) \
+                            or got["tokens_out"] != record["tokens_out"]:
+                        raise AssertionError(f"remote driver's round: {got}, texts equal "
+                                             f"{texts == record['texts']}")
+                sub_launches = rt.get(served.launches.remote(), timeout=60)
+                emit({"worker_launches": sub_launches, "admitted": stats["admitted"],
+                      "rounds_s": rounds, "connect_s": connect_s})
+                if sub_launches != {"flash_fwd": cfg.layers * stats["admitted"],
+                                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+                    raise AssertionError(f"the remote driver's 8 requests x 2 launched "
+                                         f"{sub_launches}, admitted {stats['admitted']}")
+                call_us = median_host_us(lambda: rt.get(served.ping.remote()), CLUSTER_CALLS)
+                emit({"remote_driver_actor_call_us": call_us, "calls": CLUSTER_CALLS,
+                      "clock": "host, median", "card": smi})
+
+                # ---- the node agent, through the head ----------------------
+                def api(path):
+                    with urllib.request.urlopen(f"http://127.0.0.1:{dash}{path}",
+                                                timeout=30) as r:
+                        return json.loads(r.read())
+
+                log = f"worker-{facts['worker_id'][:8]}.log"
+                stats_ = api(f"/api/nodes/{node_id}/stats")
+                listed = [e["name"] for e in api(f"/api/nodes/{node_id}/logs")["logs"]]
+                tail = api(f"/api/nodes/{node_id}/logs/{log}?lines=50")["lines"]
+                deadline = time.monotonic() + 10
+                while True:  # availability arrives with the raylet's heartbeat
+                    demand = api("/api/cluster_status")["nodes"][0]
+                    if demand["available"].get("GPU") == 0 or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.2)
+                emit({"agent_stats": stats_, "actor_log_listed": log in listed,
+                      "cluster_status_gpu": {"total": demand["total"].get("GPU"),
+                                             "available": demand["available"].get("GPU")}})
+                if stats_["node_id"] != node_id or stats_["num_workers"] < 1 or \
+                        stats_["num_leases"] < 1 or log not in listed or \
+                        not any(facts["worker_id"][:8] in ln for ln in tail) or \
+                        demand["total"].get("GPU") != 1 or demand["available"].get("GPU") != 0:
+                    raise AssertionError(f"the agent: {stats_}, {log} listed {log in listed}, "
+                                         f"cluster_status {demand}")
+                rt.get(served.close.remote(), timeout=60)
+            finally:
+                rt.shutdown()
+        finally:
+            t4 = time.perf_counter()
+            stopped = cli("stop", timeout=120)
+            emit({"cli_stop": stopped.strip(), "stop_s": time.perf_counter() - t4})
+        card_back(used_before, "stop")  # the job ended before SUCCEEDED
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit({"cli_cluster_s": time.perf_counter() - t_phase, "card": smi})
+        if read_launches(A) != {name: 0 for name in COUNTERS}:
+            raise AssertionError(f"this process launched {read_launches(A)} during the path")
+    return {name: gen_launches[name] + sub_launches[name] for name in COUNTERS}
 
 
 SERVE_CALLS = 300  # handle calls on a trivial method timed in serve_llm (median)
@@ -5036,6 +5257,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"after_serving_allocated_bytes": torch.cuda.memory_allocated()})
     cluster = runtime_cluster(record, smi)
+    cli = cli_cluster(record, smi)
     served = serve_phases(record, smi)
     compiled_dag = placement_and_compiled_dag(record, smi)
     device_tensor_channel(smi)
@@ -5068,6 +5290,7 @@ def main() -> int:
         row["card"] = smi
         row["launches_by_path"] = {"serving": serving[name], "runtime_local": runtime[name],
                                    "runtime_cluster": cluster[name],
+                                   "cli_cluster": cli[name],
                                    **{path: served[path][name] for path in served},
                                    "compiled_dag_llm": compiled_dag[name],
                                    "disagg_prefill": disagg[name],

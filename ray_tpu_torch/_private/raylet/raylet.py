@@ -300,6 +300,8 @@ class Raylet:
         self.prepared_bundles: Dict[Tuple[str, int], Dict[str, Any]] = {}
         self.committed_bundles: Dict[Tuple[str, int], "ResourceSet"] = {}
         self._starting_workers = 0
+        # ids whose spawn is in flight on an executor thread (_spawn_worker)
+        self._spawning: Set[str] = set()
         # worker-pool replenishment: peak concurrent leases over the
         # recent window; after churn (actor kills, OOM reaps) the reap
         # loop respawns idle workers back toward this level so the next
@@ -397,6 +399,15 @@ class Raylet:
 
     def _spawn_worker(self) -> WorkerHandle:
         worker_id = uuid.uuid4().hex
+        # a worker forked from a warm zygote can register before this
+        # thread files its handle: RegisterWorker waits while the id is here
+        self._spawning.add(worker_id)
+        try:
+            return self._spawn_worker_as(worker_id)
+        finally:
+            self._spawning.discard(worker_id)
+
+    def _spawn_worker_as(self, worker_id: str) -> WorkerHandle:
         log_path = os.path.join(self.session_dir, f"worker-{worker_id[:8]}.log")
         proc: Any = None
         zygote = self._get_zygote()
@@ -472,6 +483,10 @@ class Raylet:
         return {"started": started}
 
     async def RegisterWorker(self, worker_id: str, addr: Tuple[str, int]) -> dict:
+        # the id is in _spawning until its handle is in workers, so a
+        # worker that raced its spawner is held, never turned away
+        while worker_id not in self.workers and worker_id in self._spawning:
+            await asyncio.sleep(0.005)
         handle = self.workers.get(worker_id)
         if handle is None:
             return {"ok": False}
@@ -1844,10 +1859,16 @@ class Raylet:
         # wait until the port is bound
         while self.server.port == 0:
             await asyncio.sleep(0.01)
-        # no per-node dashboard agent (JAX's dashboard/agent.py:35): it
-        # comes with ROADMAP.md Queue A item 12's dashboard, and
-        # init(dashboard=True) raises naming it
-        self.agent_port = 0
+        # per-node observability agent, colocated on this event loop
+        # (reference: dashboard/agent.py:35 — one agent per node)
+        try:
+            from ray_tpu_torch.dashboard.agent import NodeAgent
+
+            self.agent = NodeAgent(self, host=self.server.host)
+            _, self.agent_port = await self.agent.start()
+        except Exception:  # noqa: BLE001 — observability must not block boot
+            logger.exception("node agent failed to start")
+            self.agent_port = 0
         await self._register()
         asyncio.ensure_future(self._heartbeat_loop())
         asyncio.ensure_future(self._reap_loop())

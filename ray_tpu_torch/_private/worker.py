@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import atexit
 import logging
+import os
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -21,16 +22,9 @@ from ray_tpu_torch._private.reference_counter import ReferenceCounter
 
 logger = logging.getLogger(__name__)
 
-# the rows of ROADMAP.md that the modes the port does not run wait for
-ITEM_10B_II = ("ROADMAP.md Queue A item 10b-ii, 'multi-node joins, fault "
-               "paths and the fastpath C codec'")
-ITEM_12_CLIENT = "ROADMAP.md Queue A item 12, 'util/client'"
-ITEM_12_DASHBOARD = "ROADMAP.md Queue A item 12, 'the dashboard'"
-
-
-def waits_for(what: str, row: str) -> NotImplementedError:
-    """The error of a mode the port does not run yet, naming its row."""
-    return NotImplementedError(f"{what} waits for {row}")
+# init(address=None) connects here when set: the GCS address that a job
+# submitted through the dashboard, or ``scripts submit``, is given
+ADDRESS_ENV = "RAY_TPU_ADDRESS"
 
 
 SCRIPT_MODE = "SCRIPT_MODE"
@@ -109,27 +103,35 @@ def init(
 
     - ``local_mode=True``: in-process threads (tasks on a thread pool,
       actors on their own executors, objects in the in-process store).
-    - ``address=None``: start a new single-node cluster (GCS + raylet +
-      shared-memory object store + worker processes, as child processes)
-      and connect as driver. The raylet leases the cards ("GPU") as
-      instances: a ``num_gpus=n`` task or actor runs in a worker whose
-      ``CUDA_VISIBLE_DEVICES`` lists its n cards.
+    - ``address=None``: connect to ``$RAY_TPU_ADDRESS`` when it is set (a
+      job that the dashboard or ``scripts submit`` started), else start a
+      new single-node cluster (GCS + raylet + shared-memory object store +
+      worker processes, as child processes) and connect as driver. The
+      raylet leases the cards ("GPU") as instances: a ``num_gpus=n`` task
+      or actor runs in a worker whose ``CUDA_VISIBLE_DEVICES`` lists its n
+      cards.
     - ``address="<host:port>"``: connect as driver to the GCS of a
-      running cluster (one started by another driver's ``init()``).
+      running cluster (one that ``python -m ray_tpu_torch.scripts.scripts
+      start --head`` printed, or another driver's ``init()``).
+    - ``address="ray://<host:port>"``: a remote driver, every call an RPC
+      to the client server that ``start --head`` runs beside the head
+      (``ray_tpu_torch.util.client``).
 
     ``num_gpus`` sets the "GPU" resource; by default it is the count of
-    visible cards. ``address="auto"`` (discovering a cluster that the CLI
-    started), ``ray://`` (a remote driver) and ``dashboard=True`` raise
-    NotImplementedError naming the ROADMAP.md row they wait for.
+    visible cards. ``dashboard`` is accepted and unused, as in the JAX
+    package: the dashboard comes from ``start --head`` or
+    ``ray_tpu_torch.dashboard.DashboardHead``. ``address="auto"`` raises
+    ValueError: nothing discovers a running cluster.
     """
     global global_worker
+    if address is None and not local_mode:
+        address = os.environ.get(ADDRESS_ENV) or None
     if address == "auto":
-        raise waits_for("init(address='auto'), discovering a cluster that "
-                        "'ray_tpu start' left running,", ITEM_10B_II)
-    if address and str(address).startswith("ray://"):
-        raise waits_for(f"init(address={address!r}), a remote driver,", ITEM_12_CLIENT)
-    if dashboard:
-        raise waits_for("init(dashboard=True)", ITEM_12_DASHBOARD)
+        raise ValueError(
+            "init(address='auto'): ray_tpu_torch does not discover a running "
+            "cluster (the JAX package's 'auto' has no working form either); "
+            "pass the address that 'python -m ray_tpu_torch.scripts.scripts "
+            f"start --head' printed, or set {ADDRESS_ENV}")
     with _init_lock:
         # serialize against an in-flight shutdown() teardown (which runs
         # outside _init_lock); waiting under the lock is deadlock-free
@@ -153,6 +155,13 @@ def init(
 
             w.core = LocalModeRuntime(resources=resources, num_cpus=num_cpus or 8,
                                       num_gpus=num_gpus)
+        elif address and str(address).startswith("ray://"):
+            # remote driver over TCP (reference: ray client, util/client/):
+            # the whole CoreRuntime proxies to a head-side ClientServer
+            from ray_tpu_torch.util.client import ClientRuntime
+
+            w.core = ClientRuntime(str(address)[len("ray://"):])
+            w.core.job_runtime_env = runtime_env or {}
         else:
             from ray_tpu_torch._private.cluster_runtime import ClusterRuntime
 

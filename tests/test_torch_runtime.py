@@ -523,21 +523,34 @@ def test_api_before_init():
 
 # ---- what waits for a later row ---------------------------------------------
 def test_cluster_modes_raise_naming_item_10b():
-    """Cluster mode on one node came with item 10b (tests/test_torch_cluster*.py);
-    what is left of it raises naming the row it waits for: discovering a
-    cluster that the CLI started (10b-ii), a remote driver and the
-    dashboard (item 12). A compiled graph came with item 9
-    (tests/test_torch_compiled_dag.py): in local mode, whose actors run no
-    ``__ray_call__``, it takes the task path."""
+    """Cluster mode on one node came with item 10b (tests/test_torch_cluster*.py),
+    the CLI, the dashboard and remote drivers with item 12
+    (tests/test_torch_cli.py, _dashboard*.py, _ray_client.py). What is left
+    of these modes: ``address="auto"`` raises ValueError in both packages
+    (JAX's fails parsing it; the port's says that nothing discovers a
+    cluster and names what to pass instead); a ``ray://`` address with no
+    client server behind it fails to connect alike in both, leaving neither
+    initialized; ``dashboard=True`` is accepted, as JAX's is. A compiled
+    graph came with item 9 (tests/test_torch_compiled_dag.py): in local
+    mode, whose actors run no ``__ray_call__``, it takes the task path."""
     rt = ray_tpu_torch
-    rows = [({"address": "auto"}, "ROADMAP.md Queue A item 10b-ii, 'multi-node joins, "
-                                  "fault paths and the fastpath C codec'"),
-            ({"address": "ray://127.0.0.1:10001"}, "ROADMAP.md Queue A item 12, 'util/client'"),
-            ({"dashboard": True}, "ROADMAP.md Queue A item 12, 'the dashboard'")]
-    for kwargs, row in rows:
-        with pytest.raises(NotImplementedError, match=re.escape(row)):
-            rt.init(**kwargs)
-        assert not rt.is_initialized()
+    with pytest.raises(ValueError, match="does not discover a running cluster.*RAY_TPU_ADDRESS"):
+        rt.init(address="auto")
+    with pytest.raises(ValueError):
+        ray_tpu.init(address="auto")
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    nobody = f"ray://127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    for p in PACKAGES:
+        with pytest.raises(ConnectionRefusedError):
+            p.init(address=nobody)
+        assert not p.is_initialized()
+        p.init(local_mode=True, dashboard=True)
+        assert p.is_initialized()
+        p.shutdown()
     # timeline() reads a cluster's GCS: local mode has none, in both packages
     got = [run_local(p, lambda p: outcome(p, p.timeline)) for p in PACKAGES]
     assert got[0][0] == got[1][0] == "AttributeError"
