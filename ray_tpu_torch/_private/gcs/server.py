@@ -86,6 +86,9 @@ class ActorInfo:
     # a lease request for this actor is queued at some raylet — its shape
     # already shows in that node's pending_shapes (autoscaler dedupe)
     lease_in_flight: bool = False
+    # its lease was granted and CreateActor (the actor's __init__) runs: it
+    # holds its node's resources already, so it is no demand either
+    creating: bool = False
     # workers tainted by a runtime env are dedicated to it
     runtime_env_hash: str = ""
     # scheduling strategy (reference: node-affinity / node-label policies)
@@ -187,7 +190,7 @@ class GcsServer:
         if replayed:
             logger.info("replayed %d WAL records", self._wal_records)
             for a in self.actors.values():
-                a.lease_in_flight = False
+                a.lease_in_flight = a.creating = False
             # a restart restored state (possibly WAL-only, before any
             # snapshot existed): pending work needs rescheduling
             self._needs_replay_reschedule = True
@@ -229,7 +232,7 @@ class GcsServer:
             self._job_counter = snap.get("job_counter", 0)
             # in-flight markers are meaningless across a restart
             for a in self.actors.values():
-                a.lease_in_flight = False
+                a.lease_in_flight = a.creating = False
             n_live = sum(1 for a in self.actors.values()
                          if a.state != "DEAD")
             logger.info(
@@ -726,8 +729,14 @@ class GcsServer:
             dict(a.resources)
             for a in self.actors.values()
             # lease_in_flight actors already appear in some raylet's
-            # pending_shapes — counting both would double the demand
-            if a.state == "PENDING" and not a.lease_in_flight
+            # pending_shapes — counting both would double the demand. A
+            # RESTARTING actor with no worker is as unplaced as a PENDING
+            # one: its node died or drained, and its restart may need a
+            # node the autoscaler has yet to launch (the JAX package
+            # counts PENDING alone, so a lost card node's actor never
+            # brings a replacement up)
+            if a.state in ("PENDING", "RESTARTING") and a.worker_addr is None
+            and not a.lease_in_flight and not a.creating
         ]
         return {
             "nodes": [
@@ -1388,6 +1397,7 @@ class GcsServer:
         obs_timeline.mark_actor(actor.actor_id, "lease_granted",
                                 job_id=actor.job_id, node_id=node_id)
         worker_addr = tuple(reply["worker_addr"])
+        actor.creating = True
         try:
             worker = self._worker_client(worker_addr)
             creation_reply = await worker.acall(
@@ -1400,6 +1410,7 @@ class GcsServer:
                 timeout=config.actor_creation_timeout_s,
             )
         except Exception as e:  # noqa: BLE001
+            actor.creating = False
             logger.warning("actor %s creation push failed: %s", actor.actor_id[:12], e)
             # the worker may still be running __init__ — return the lease
             # with worker_dead=True (kills the worker) so the retry can't
@@ -1411,6 +1422,7 @@ class GcsServer:
             except Exception:
                 pass
             return 0.5
+        actor.creating = False
         if creation_reply.get("ok"):
             actor.state = "ALIVE"
             actor.worker_addr = worker_addr

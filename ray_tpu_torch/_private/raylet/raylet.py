@@ -292,6 +292,7 @@ class Raylet:
         self.workers: Dict[str, WorkerHandle] = {}
         self.idle_workers: List[WorkerHandle] = []
         self.leases: Dict[str, Lease] = {}
+        self._granting = 0  # grants awaiting their worker's start
         self.pending: List[PendingLease] = []
         self.autoscaling_enabled = False
         self._pending_death_notices: List[dict] = []
@@ -756,8 +757,16 @@ class Raylet:
         alloc = rs.allocate(req["resources"])
         if alloc is None:
             return None
-        worker = await self._get_idle_worker(req.get("runtime_env_hash") or "",
-                                             tuple(alloc["gpu_ids"]))
+        # a grant waiting for its worker to start holds resources but is
+        # not in self.leases yet: the heartbeat counts it as a lease, or
+        # the node reads as idle for the whole worker start and an
+        # autoscaler terminates it under the lease it was launched for
+        self._granting += 1
+        try:
+            worker = await self._get_idle_worker(req.get("runtime_env_hash") or "",
+                                                 tuple(alloc["gpu_ids"]))
+        finally:
+            self._granting -= 1
         if worker is None:
             rs.release(alloc)
             return None
@@ -1582,7 +1591,7 @@ class Raylet:
                     node_id=self.node_id,
                     available_resources=self.resources.available,
                     pending_shapes=shapes,
-                    num_leases=len(self.leases),
+                    num_leases=len(self.leases) + self._granting,
                     draining=self.draining,
                     drain_remaining_s=max(
                         0.0, self.drain_deadline - time.monotonic())

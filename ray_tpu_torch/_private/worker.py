@@ -134,8 +134,10 @@ def init(
             f"start --head' printed, or set {ADDRESS_ENV}")
     with _init_lock:
         # serialize against an in-flight shutdown() teardown (which runs
-        # outside _init_lock); waiting under the lock is deadlock-free
-        # (the event's setter never takes the lock) and bounded
+        # outside _init_lock — see shutdown's RC002 note). Waiting UNDER
+        # the lock is deadlock-free (the event's setter never takes the
+        # lock) and closes the check-then-act gap a pre-lock wait would
+        # leave; bounded by the timeout — raycheck: disable=RC002
         if not _teardown_done.wait(timeout=60):
             logger.warning(
                 "previous runtime teardown still in flight after 60s; "
@@ -204,7 +206,7 @@ def _atexit_shutdown() -> None:
 
 def shutdown() -> None:
     global global_worker
-    # detach inside the lock, tear down outside it: core.shutdown()
+    # RC002: detach inside the lock, tear down outside it. core.shutdown()
     # closes RPC clients and waits on them, and holding _init_lock
     # across that would wedge any thread entering init/shutdown; a
     # concurrent init() waits on the _teardown_done event instead

@@ -125,7 +125,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch.util.collective.objstore_group, ray_tpu_torch.util.collective.v2, "
             "ray_tpu_torch.rllib.podracer.sebulba, ray_tpu_torch.rllib.podracer.codec, "
             "ray_tpu_torch.rllib.podracer.fleet, ray_tpu_torch.cluster_utils, "
-            "ray_tpu_torch.data._internal.streaming_executor; "
+            "ray_tpu_torch.data._internal.streaming_executor, ray_tpu_torch._private.chaos, "
+            "ray_tpu_torch.autoscaler, ray_tpu_torch.autoscaler.autoscaler, "
+            "ray_tpu_torch.autoscaler.node_provider; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu', "
             "'psutil', 'cloudpickle')))")

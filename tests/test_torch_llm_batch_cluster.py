@@ -90,20 +90,34 @@ def cluster():
             yield c
 
 
-def tagged():
+BLOCKS = 3
+
+
+def tagged(barrier_dir):
     """The rows through a CPU stage of tasks spread over both nodes, each
-    row tagged with the node that mapped it."""
+    row tagged with the node that mapped it. Each task waits until all
+    three have started (a file each in ``barrier_dir``): three tasks
+    running at once need three leases, more than one node's two CPUs, so
+    both nodes map rows however slow the host is. (Without the wait,
+    under load the first lease's worker could finish a task before the
+    other leases were granted and take the next one: the runtime reuses
+    a granted lease, as the JAX package's does.)"""
     def tag(b):
         import time
 
-        time.sleep(0.3)  # the three tasks overlap, so SPREAD leases twice
+        open(os.path.join(barrier_dir, str(int(b["i"][0]))), "w").close()
+        deadline = time.monotonic() + 60
+        while len(os.listdir(barrier_dir)) < BLOCKS:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{os.listdir(barrier_dir)} of {BLOCKS} tasks started")
+            time.sleep(0.02)
         return dict(b, node=np.full(len(b["i"]), os.environ["RAY_TPU_NODE_ID"]))
 
-    return ray_tpu_torch.data.from_items(ROWS, override_num_blocks=3).map_batches(
+    return ray_tpu_torch.data.from_items(ROWS, override_num_blocks=BLOCKS).map_batches(
         tag, scheduling_strategy="SPREAD")
 
 
-def test_processor_on_leased_cards_matches_jax(cluster, jax_side):
+def test_processor_on_leased_cards_matches_jax(cluster, jax_side, tmp_path):
     """Two pool actors, one a node's card: JAX's completions, in order;
     each actor built one engine on its card's worker, and the CPU stage
     ran on both nodes (chip_smoke.py runs one actor on the card)."""
@@ -113,7 +127,7 @@ def test_processor_on_leased_cards_matches_jax(cluster, jax_side):
     process = build_llm_processor(config, batch_size=2, device="cpu",
                                   num_gpus=1, concurrency=pool, _stats_column="stage")
     with ThreadPoolExecutor(1) as driver:
-        port = driver.submit(lambda: process(tagged()).take_all())
+        port = driver.submit(lambda: process(tagged(str(tmp_path))).take_all())
         want = jax_rows(jax_process)
         got = port.result(timeout=120)
     assert [r["generated"] for r in got] == [r["generated"] for r in want]
