@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_repeats.py --cycles tasks|actor|after_profiles
     python3 chip_repeats.py --after-work <variant>  # a key of AFTER_WORK
     python3 chip_repeats.py --serving fresh|after_profiles|after_traces|twice
+    python3 chip_repeats.py --fastpath  # one fastpath_backends run
 
 Some of chip_smoke.py's checks rest on torch.profiler's record of the card
 (CUPTI) or on a timing window of about a millisecond. This script repeats
@@ -44,7 +45,15 @@ them and prints what each repeat saw, one JSON object a line:
   (median of 300, six windows alternating D, I, I, D, D, I) with the
   releases a reference count reaching zero starts run on the core
   worker's release thread (D, the port's way) and run inline by the
-  driver (I, the JAX package's way off its event loop).
+  driver (I, the JAX package's way off its event loop);
+- fastpath_backends: runtime_cluster's control-plane measurements under
+  each codec, in a fresh process a run (RAY_TPU_FASTPATH is read at
+  import), six runs alternating 0, require, require, 0, 0, require: µs a
+  no-op actor call on a one-node cluster (median of 300), ms a 64 MB
+  CUDA tensor's put by the driver plus its get in a num_gpus=1 worker
+  (median of 5), and GB/s of fastpath.write_body_into laying a 64 MB
+  body into a buffer in the driver (median of 20), with the backend each
+  process kind loaded.
 
 It exits 0 when every repeat ran, whatever it saw; the last line sums up.
 """
@@ -382,6 +391,91 @@ def cluster_release_thread(smi) -> dict:
     return row
 
 
+CODEC_BYTES = 64 * 2 ** 20  # fastpath_backends' write_body_into body
+CODEC_REPEATS = 20  # its timed layouts (median)
+FASTPATH_MODES = ("0", "require", "require", "0", "0", "require")
+
+
+def fastpath_run(smi) -> dict:
+    """One fastpath_backends run, under the RAY_TPU_FASTPATH this process
+    was started with."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import fastpath
+
+    body = memoryview(np.random.default_rng(0).integers(
+        0, 255, CODEC_BYTES, dtype=np.uint8)).cast("B")
+    meta = b"m" * 256
+    dest = bytearray(8 + len(meta) + 8 + body.nbytes)
+    for _ in range(3):  # the destination's pages faulted in
+        fastpath.write_body_into(dest, meta, [body])
+    ts = []
+    for _ in range(CODEC_REPEATS):
+        t0 = time.perf_counter()
+        fastpath.write_body_into(dest, meta, [body])
+        ts.append(time.perf_counter() - t0)
+    if bytes(dest) != fastpath.available_backends()["python"].encode_body(meta, [body]):
+        raise AssertionError("write_body_into laid out another body than encode_body")
+    row = {"mode": os.environ.get("RAY_TPU_FASTPATH"), "driver": fastpath.backend(),
+           "write_body_into_gb_s": body.nbytes / float(np.median(ts)) / 1e9,
+           "write_body_into_ms": 1e3 * float(np.median(ts)), "card": smi}
+    rt.init(num_cpus=2)
+    try:
+        @rt.remote
+        class Pinger:
+            def ping(self):
+                return None
+
+            def backend(self):
+                return C.fastpath_backend()
+
+        a = Pinger.remote()
+        row["actor_worker"] = rt.get(a.backend.remote(), timeout=300)
+        row["task_worker"] = rt.get(rt.remote(C.fastpath_backend).remote(), timeout=300)
+        rt.get([a.ping.remote() for _ in range(50)], timeout=120)
+        row["actor_call_us"] = C.median_host_us(lambda: rt.get(a.ping.remote(), timeout=60),
+                                                C.CLUSTER_CALLS)
+        x = torch.randn(C.RUNTIME_PUT_BYTES // 2, device="cuda").bfloat16()
+        fetch = rt.remote(num_gpus=1)(C.cluster_fetch_task)
+        put_get = []
+        for _ in range(C.CLUSTER_PUTS + 1):  # the first leases the worker: dropped
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = rt.put(x)
+            put_ms = 1e3 * (time.perf_counter() - t0)
+            put_get.append(put_ms + rt.get(fetch.remote([ref]), timeout=300)["get_ms"])
+            del ref
+        row["put_get_64mb_ms"] = float(np.median(put_get[1:]))
+        row["put_get_64mb_ms_all"] = put_get[1:]
+        rt.kill(a)
+    finally:
+        rt.shutdown()
+    return row
+
+
+def fastpath_backends(smi) -> dict:
+    rows = []
+    for mode in FASTPATH_MODES:
+        env = dict(os.environ, RAY_TPU_FASTPATH=mode)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--fastpath"],
+                             capture_output=True, text=True, timeout=600, env=env)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+        row = json.loads(lines[-1]) if out.returncode == 0 and lines else \
+            {"mode": mode, "rc": out.returncode, "stderr": out.stderr[-1500:]}
+        C.emit({"fastpath_run": row})
+        rows.append(row)
+    summary = {}
+    for mode in sorted(set(FASTPATH_MODES)):
+        mine = [r for r in rows if r.get("mode") == mode and "actor_call_us" in r]
+        summary[mode] = {k: [r[k] for r in mine] for k in
+                         ("actor_call_us", "put_get_64mb_ms", "write_body_into_gb_s")}
+        summary[mode]["backends"] = sorted({(r["driver"], r["task_worker"], r["actor_worker"])
+                                            for r in mine})
+    C.emit({"fastpath_backends": summary, "card": smi})
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_repeats: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -398,6 +492,9 @@ def main() -> int:
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if sys.argv[1:2] == ["--fastpath"]:
+        print(json.dumps(fastpath_run(smi)), flush=True)
+        return 0
     if sys.argv[1:2] == ["--serving"]:
         _build.load_extension()
         print(json.dumps({"outcomes": serving_run(sys.argv[2], smi)}), flush=True)
@@ -406,13 +503,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke.main
     torch.backends.cudnn.allow_tf32 = False
     print(smi, flush=True)
-    _build.load_extension()
     checks = {"paged_warm_timing": lambda: paged_warm_timing(smi),
               "cupti_record": cupti_record, "gpu_profile_trace": gpu_profile_trace,
               "gpu_profile_cycles": gpu_profile_cycles, "trace_after_work": trace_after_work,
               "serving_variants": lambda: serving_variants(smi),
-              "cluster_release_thread": lambda: cluster_release_thread(smi)}
+              "cluster_release_thread": lambda: cluster_release_thread(smi),
+              "fastpath_backends": lambda: fastpath_backends(smi)}
     chosen = sys.argv[1:] or list(checks)
+    if set(chosen) - {"fastpath_backends"}:  # the one check that runs no kernel
+        _build.load_extension()
     summary = {"card": smi, **{name: checks[name]() for name in chosen}}
     print(json.dumps(summary), flush=True)
     return 0

@@ -43,7 +43,9 @@ before it and read just after:
   the handle at once, cold and warm (tokens bit-identical to the direct
   continuous round's, wall against it), µs a handle call, status(); the
   same 8 as concurrent POSTs through the HTTP proxy and one prompt
-  streamed as a chunked response (TTFT over HTTP); then the same config
+  streamed as a chunked response (TTFT over HTTP); the same 8 as
+  concurrent unary calls through the gRPC ingress (payload=json) and one
+  prompt as a server stream (TTFT over gRPC); then the same config
   with @serve.batch in place of continuous batching (8 concurrent calls,
   batch sizes, tokens bit-identical to LLMEngine's batch of the 8); the
   flash launches counted in the replica's process (32 a prefill call);
@@ -150,6 +152,12 @@ before it and read just after:
   loss and Adam, all on the card): env steps/s, ms an update step, the
   device's idle share, kernels a step, peak memory, and the episode
   return over 20 train() calls.
+
+Every process of every cluster above runs the control plane's C codec
+(RAY_TPU_FASTPATH=require, set before ray_tpu_torch is imported and
+inherited by each daemon and worker): the build reports the codec's
+compile seconds beside the kernels', and runtime_cluster fails unless
+the driver, a task's worker and the actor's worker each loaded it.
 
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero. The line before the last lists the kernels with their times,
@@ -769,7 +777,8 @@ class ClusterLlama:
                       "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                       "gpu_ids": rt.get_runtime_context().get_assigned_resources()["gpu_ids"],
                       "pid": os.getpid(), "node_id": rt.get_runtime_context().get_node_id(),
-                      "worker_id": os.environ["RAY_TPU_WORKER_ID"]}  # its log's name
+                      "worker_id": os.environ["RAY_TPU_WORKER_ID"],  # its log's name
+                      "fastpath": fastpath_backend()}
         t0 = time.perf_counter()
         self.engine = LLMEngine(config)
         self.cengine = ContinuousLLMEngine(config, params=self.engine.generator.params)
@@ -808,6 +817,13 @@ class ClusterLlama:
 
     def close(self):
         self.cengine.shutdown()
+
+
+def fastpath_backend() -> str:
+    """The control-plane codec this process loaded: "c" or "python"."""
+    from ray_tpu_torch._private import fastpath
+
+    return fastpath.backend()
 
 
 def cluster_flash_task(q, k, v, do):
@@ -899,7 +915,8 @@ def runtime_cluster(record, smi) -> dict:
         rt.init(num_cpus=4)
         try:
             init_s = time.perf_counter() - t0
-            first = rt.get(rt.remote(lambda: os.getpid()).remote(), timeout=300)
+            first, task_fastpath = rt.get(
+                rt.remote(lambda: (os.getpid(), fastpath_backend())).remote(), timeout=300)
             first_s = time.perf_counter() - t0
             res = rt.cluster_resources()
             emit({"cluster_resources": res, "init_s": init_s, "first_task_s": first_s,
@@ -916,6 +933,12 @@ def runtime_cluster(record, smi) -> dict:
             if facts["cuda_initialized"] or facts["visible"] != "0" or \
                     facts["gpu_ids"] != [0] or facts["pid"] == os.getpid():
                 raise AssertionError(f"the actor's worker was not fresh on card 0: {facts}")
+            backends = {"driver": fastpath_backend(), "task_worker": task_fastpath,
+                        "actor_worker": facts["fastpath"]}
+            emit({"fastpath_backends": backends, "env": os.environ.get("RAY_TPU_FASTPATH")})
+            if set(backends.values()) != {"c"}:
+                raise AssertionError(f"a process of the cluster frames its RPCs in Python: "
+                                     f"{backends}")
             rt.get(served.reset_launches.remote(), timeout=60)
             tokens = rt.get(served.generate_tokens.remote(record["ids4"]), timeout=600)
             gen_launches = rt.get(served.launches.remote(), timeout=60)
@@ -1509,7 +1532,11 @@ def serve_phases(record, smi) -> dict:
     continuous round's and texts (decoded by ByteTokenizer) to its texts,
     µs a handle call, status(). serve_http: the same 8 as concurrent POSTs
     through the HTTP proxy, and one prompt streamed as a chunked response
-    (TTFT over HTTP; its deltas join to that prompt's text). serve_batch:
+    (TTFT over HTTP; its deltas join to that prompt's text). serve_grpc:
+    the same replica through serve.start_grpc_proxy's generic service, the
+    8 as concurrent unary calls (payload=json) and one prompt as a server
+    stream of generate_stream (TTFT over gRPC), 9 admissions counted by
+    grpc_proxy_stats(). serve_batch:
     the deployment deleted, the same config with continuous_batching=False
     (one @serve.batch window): 8 concurrent calls in batches of at most
     batch_max_size, tokens bit-identical to LLMEngine's batch of the 8
@@ -1626,6 +1653,46 @@ def serve_phases(record, smi) -> dict:
                                      f"proxy {proxy}")
             out["serve_http"] = launches
 
+        with phase("serve_grpc"):
+            import grpc
+
+            # the same replica through the generic gRPC service, payload=json
+            gport = serve.start_grpc_proxy(port=0)
+            before = launches_of(handle)
+            json_md = (("payload", "json"),)
+            bodies = [json.dumps({"args": [p]}).encode() for p in prompts8]
+            with grpc.insecure_channel(f"127.0.0.1:{gport}") as ch:
+                call = ch.unary_unary(f"/{config.name}/__call__")
+                t1 = time.perf_counter()
+                futures = [call.future(b, metadata=json_md, timeout=900) for b in bodies]
+                texts = [json.loads(f.result()) for f in futures]
+                grpc_s = time.perf_counter() - t1
+                emit({"serve_grpc_s": grpc_s, "handle_warm_s": rounds[1], "serve_http_s": http_s,
+                      "grpc_over_handle": grpc_s / rounds[1], "grpc_over_http": grpc_s / http_s,
+                      "card": smi})
+                check_tokens("serve_grpc", texts, record["tokens8"])
+                # one prompt as a server stream: TTFT over gRPC
+                t1 = time.perf_counter()
+                deltas, ttft_s = [], None
+                for msg in ch.unary_stream(f"/{config.name}/generate_stream")(
+                        bodies[0], metadata=json_md, timeout=900):
+                    ttft_s = ttft_s if ttft_s is not None else time.perf_counter() - t1
+                    deltas.append(json.loads(msg))
+                stream_s = time.perf_counter() - t1
+            launches = {k: v - before[k] for k, v in launches_of(handle).items()}
+            gstats = serve.grpc_proxy_stats()
+            serve.stop_grpc_proxy()
+            emit({"serve_grpc_stream_ttft_s": ttft_s, "http_stream_ttft_s": streamed["ttft_s"],
+                  "stream_total_s": stream_s, "deltas": len(deltas),
+                  "deltas_join_to_text": "".join(deltas) == texts[0],
+                  "serve_grpc_launches": launches, "grpc_proxy_stats": gstats, "card": smi})
+            if "".join(deltas) != texts[0] or len(deltas) != len(ids_of(texts[0])) or \
+                    launches != {**zero, "flash_fwd": cfg.layers * (len(prompts8) + 1)} or \
+                    gstats["admission_admitted"] != len(prompts8) + 1:
+                raise AssertionError(f"serve_grpc: {len(deltas)} deltas, launches {launches}, "
+                                     f"stats {gstats}")
+            out["serve_grpc"] = launches
+
         with phase("serve_batch"):
             serve.delete(config.name)
             bconfig = dataclasses.replace(config, name="llama3_8b_batch",
@@ -1657,6 +1724,7 @@ def serve_phases(record, smi) -> dict:
             raise AssertionError(f"the driver launched {driver} during the Serve phases")
     finally:
         try:
+            serve.stop_grpc_proxy()
             serve.shutdown()
         finally:
             rt.shutdown()
@@ -5388,6 +5456,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    # every process of every cluster below inherits it: the control plane
+    # frames its RPCs with the C codec, or the process fails to start
+    os.environ["RAY_TPU_FASTPATH"] = "require"
+    from ray_tpu_torch._private import fastpath
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as A
 
@@ -5410,7 +5482,12 @@ def main() -> int:
     with phase("build"):
         t0 = time.perf_counter()
         _build.load_extension(verbose=True)  # ptxas's report per kernel
-        emit({"build_s": time.perf_counter() - t0, "dir": _build.BUILD_DIR})
+        emit({"build_s": time.perf_counter() - t0, "dir": _build.BUILD_DIR,
+              # the codec was built (or found built) when ray_tpu_torch was imported
+              "fastpath_build_s": fastpath.BUILD_SECONDS, "fastpath_backend": fastpath.backend(),
+              "fastpath_compiler": fastpath.compiler()})
+        if fastpath.backend() != "c":
+            raise AssertionError(f"the driver's fastpath backend is {fastpath.backend()!r}")
 
     with phase("kernel_vs_plain"):
         gen = torch.Generator(device="cuda").manual_seed(SEED)

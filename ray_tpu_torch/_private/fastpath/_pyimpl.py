@@ -1,9 +1,10 @@
 """Pure-Python fallback for the native control-plane codec (copy of
 ray_tpu/_private/fastpath/_pyimpl.py).
 
-Byte-identical to the JAX package's C backend (src/fastpath/fastpath.c)
-and to its ``_pyimpl``; the port has this backend only
-(tests/test_torch_cluster_parts.py holds its frames against JAX's).
+Byte-identical to the port's C backend (csrc/fastpath.c), to the JAX
+package's and to its ``_pyimpl``: tests/test_torch_fastpath.py holds
+them against each other. Change the wire layout in every place or not
+at all.
 
 Layouts:
     frame header:  [u32 total][u64 call_id][u8 kind]   (little-endian)

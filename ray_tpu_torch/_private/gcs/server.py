@@ -2129,7 +2129,8 @@ class GcsServer:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--port", type=int, required=True)
+    parser.add_argument("--port", type=int, required=True)  # 0: the system picks
+    parser.add_argument("--port-file", default="")  # written once listening
     parser.add_argument("--storage-path", default="")
     parser.add_argument("--log-level", default="INFO")
     args = parser.parse_args()
@@ -2138,8 +2139,20 @@ def main() -> None:
     import atexit
 
     atexit.register(server._flush)
+
+    async def _run():
+        task = asyncio.ensure_future(server.run())
+        while server.server._server is None and not task.done():  # not bound yet
+            await asyncio.sleep(0.01)
+        if args.port_file and not task.done():
+            tmp = args.port_file + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(str(server.server.port))
+            os.replace(tmp, args.port_file)
+        await task
+
     try:
-        asyncio.run(server.run())
+        asyncio.run(_run())
     except KeyboardInterrupt:
         pass
 

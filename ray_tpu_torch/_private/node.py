@@ -28,16 +28,6 @@ from ray_tpu_torch._private.rpc import RpcClient
 logger = logging.getLogger(__name__)
 
 
-def _free_port() -> int:
-    import socket
-
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def available_memory_bytes() -> int:
     """MemAvailable of /proc/meminfo (psutil's virtual_memory().available)."""
     with open("/proc/meminfo") as f:
@@ -75,8 +65,29 @@ def default_node_resources(
     return out
 
 
-def spawn_gcs(port: int, session_dir: str, log_name: str = "gcs.log") -> subprocess.Popen:
-    """Spawn the GCS server process and wait until it answers Ping."""
+def _wait_port_file(proc: subprocess.Popen, port_file: str, what: str, log_path: str,
+                    timeout: float) -> int:
+    """The port a daemon bound, from the file it writes once listening."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(port_file):
+        if proc.poll() is not None:
+            raise RuntimeError(f"{what} exited with {proc.returncode}; see {log_path}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what} failed to start in time")
+        time.sleep(0.02)
+    with open(port_file) as f:
+        port = int(f.read().strip())
+    os.remove(port_file)
+    return port
+
+
+def spawn_gcs(port: int, session_dir: str,
+              log_name: str = "gcs.log") -> Tuple[subprocess.Popen, int]:
+    """Spawn the GCS server process and wait until it answers Ping;
+    returns it and its port. ``port`` 0: the GCS binds a port the system
+    picks and reports it through a file. (A port picked here and bound
+    there could be taken in between by any process of the host binding
+    or connecting, ROADMAP.md Queue C.)"""
     env = dict(os.environ)
     env["RAY_TPU_CONFIG_JSON"] = config.to_json()
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -84,10 +95,12 @@ def spawn_gcs(port: int, session_dir: str, log_name: str = "gcs.log") -> subproc
         p for p in [repo_root, env.get("PYTHONPATH", "")] if p
     )
     gcs_log = open(os.path.join(session_dir, log_name), "ab")
+    port_file = os.path.join(session_dir, "gcs_port")
     proc = subprocess.Popen(
         [
             sys.executable, "-m", "ray_tpu_torch._private.gcs.server",
             "--port", str(port),
+            "--port-file", port_file,
             "--storage-path", config.gcs_storage_path,
         ],
         env=env,
@@ -95,15 +108,16 @@ def spawn_gcs(port: int, session_dir: str, log_name: str = "gcs.log") -> subproc
         stderr=subprocess.STDOUT,
         start_new_session=True,  # its own process group: kill_process_tree
     )
-    client = RpcClient("127.0.0.1", port)
     # generous: a loaded CI box (a full suite's worth of processes on
     # one core) can take >30s just to schedule the interpreter start
+    port = _wait_port_file(proc, port_file, "GCS", f"{session_dir}/{log_name}", 60)
+    client = RpcClient("127.0.0.1", port)
     deadline = time.monotonic() + 60
     try:
         while True:
             try:
                 client.call("Ping", timeout=2)
-                return proc
+                return proc, port
             except Exception:
                 if proc.poll() is not None:
                     raise RuntimeError(
@@ -168,19 +182,7 @@ def spawn_raylet(
     # worker join (none of them calls setsid): kill_process_tree ends them
     proc = subprocess.Popen(cmd, env=env, stdout=raylet_log, stderr=subprocess.STDOUT,
                             start_new_session=True)
-    deadline = time.monotonic() + 30
-    while not os.path.exists(port_file):
-        if proc.poll() is not None:
-            raise RuntimeError(
-                f"raylet exited with {proc.returncode}; see {session_dir}/{log_name}"
-            )
-        if time.monotonic() > deadline:
-            raise RuntimeError("raylet failed to start in time")
-        time.sleep(0.02)
-    with open(port_file) as f:
-        port = int(f.read().strip())
-    os.remove(port_file)
-    return proc, port
+    return proc, _wait_port_file(proc, port_file, "raylet", f"{session_dir}/{log_name}", 60)
 
 
 def _group_alive(pgid: int) -> bool:
@@ -240,8 +242,7 @@ class Node:
     ):
         self.session_dir = tempfile.mkdtemp(prefix="ray_tpu_session_")
         self.node_id = NodeID.from_random().hex()
-        self.gcs_port = config.gcs_port or _free_port()
-        self.gcs_addr: Tuple[str, int] = ("127.0.0.1", self.gcs_port)
+        self.gcs_port = config.gcs_port  # 0: the GCS's own pick, known once it is up
         self.store_socket = os.path.join(self.session_dir, "store.sock")
         self.store_capacity = int(object_store_memory or config.object_store_memory_bytes)
         self.resources = default_node_resources(num_cpus, num_gpus, resources)
@@ -250,11 +251,15 @@ class Node:
         self.raylet_port: Optional[int] = None
 
     @property
+    def gcs_addr(self) -> Tuple[str, int]:
+        return ("127.0.0.1", self.gcs_port)
+
+    @property
     def raylet_addr(self) -> Tuple[str, int]:
         return ("127.0.0.1", self.raylet_port)
 
     def start(self) -> None:
-        self.gcs_proc = spawn_gcs(self.gcs_port, self.session_dir)
+        self.gcs_proc, self.gcs_port = spawn_gcs(self.gcs_port, self.session_dir)
         self.raylet_proc, self.raylet_port = spawn_raylet(
             gcs_addr=self.gcs_addr,
             node_id=self.node_id,

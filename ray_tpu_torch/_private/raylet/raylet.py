@@ -286,6 +286,9 @@ class Raylet:
         self.labels = labels or {}
         self.session_dir = session_dir or tempfile.mkdtemp(prefix="ray_tpu_")
         self.server = RpcServer(port=port, name="raylet")
+        # set once the GCS has this node: its port file waits for it, so a
+        # driver's init() returns with the node's resources in the cluster's
+        self.registered = False
         self.server.register_instance(self)
         self.gcs: Optional[RpcClient] = None
         self.store_proc: Optional[subprocess.Popen] = None
@@ -1879,6 +1882,7 @@ class Raylet:
             logger.exception("node agent failed to start")
             self.agent_port = 0
         await self._register()
+        self.registered = True
         asyncio.ensure_future(self._heartbeat_loop())
         asyncio.ensure_future(self._reap_loop())
         asyncio.ensure_future(self._idle_reaper_loop())
@@ -1972,9 +1976,9 @@ def main() -> None:
 
     async def _run():
         task = asyncio.ensure_future(raylet.run())
-        while raylet.server.port == 0:
+        while not raylet.registered and not task.done():
             await asyncio.sleep(0.01)
-        if args.port_file:
+        if args.port_file and not task.done():
             tmp = args.port_file + ".tmp"
             with open(tmp, "w") as f:
                 f.write(str(raylet.server.port))

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import tempfile
 import time
@@ -91,16 +90,12 @@ class Cluster:
         return ("127.0.0.1", self.gcs_port)
 
     def _start_gcs(self) -> None:
-        if self.gcs_port is None:
-            s = socket.socket()
-            s.bind(("127.0.0.1", 0))
-            self.gcs_port = s.getsockname()[1]
-            s.close()
+        """The GCS on its port (a restart's), or on one the GCS picks."""
         old = config.gcs_storage_path
         try:
             if self.gcs_storage_path:
                 config.from_json(json.dumps({"gcs_storage_path": self.gcs_storage_path}))
-            self.gcs_proc = spawn_gcs(self.gcs_port, self.session_dir)
+            self.gcs_proc, self.gcs_port = spawn_gcs(self.gcs_port or 0, self.session_dir)
         finally:
             config.from_json(json.dumps({"gcs_storage_path": old}))
 

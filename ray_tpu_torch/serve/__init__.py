@@ -3,12 +3,10 @@ reference: python/ray/serve).
 
 Deployments are replicated actors; handles route with power-of-two-
 choices; @serve.batch keeps the card's batches full; a stdlib HTTP proxy
-provides ingress. A replica asks for a card through its actor options
-(``num_gpus`` or ``resources={"GPU": 1}``) and runs on the leased one.
-
-The gRPC ingress (``start_grpc_proxy``, ``grpc_proxy_stats``,
-``stop_grpc_proxy``) is not ported: each raises NotImplementedError
-naming its ROADMAP.md row.
+and a generic gRPC service provide ingress (``grpc`` is imported only
+when the gRPC proxy starts). A replica asks for a card through its actor
+options (``num_gpus`` or ``resources={"GPU": 1}``) and runs on the leased
+one.
 """
 
 from ray_tpu_torch.serve import slo
@@ -20,6 +18,11 @@ from ray_tpu_torch.serve.controller import (
     run,
     shutdown,
     status,
+)
+from ray_tpu_torch.serve.grpc_proxy import (
+    grpc_proxy_stats,
+    start_grpc_proxy,
+    stop_grpc_proxy,
 )
 from ray_tpu_torch.serve.deployment import (
     Application,
@@ -39,24 +42,6 @@ from ray_tpu_torch.serve.slo import (
     ReplicasUnavailableError,
     request_deadline,
 )
-
-GRPC_INGRESS_ROW = "ROADMAP.md Queue A, 'Serve's gRPC ingress'"
-
-
-def _grpc_waits(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"serve.{name}: the gRPC ingress is not ported to ray_tpu_torch "
-            f"yet; it waits for {GRPC_INGRESS_ROW}")
-
-    fn.__name__ = fn.__qualname__ = name
-    fn.__doc__ = f"Not ported: raises NotImplementedError ({GRPC_INGRESS_ROW})."
-    return fn
-
-
-start_grpc_proxy = _grpc_waits("start_grpc_proxy")
-grpc_proxy_stats = _grpc_waits("grpc_proxy_stats")
-stop_grpc_proxy = _grpc_waits("stop_grpc_proxy")
 
 __all__ = [
     "Application",

@@ -98,14 +98,43 @@ def test_fastpath_frames_equal_jax(total, call_id, kind, meta, bufs, prefix, ind
             port_fp.decode_body(bad)
 
 
-def test_fastpath_has_the_python_backend_only():
-    assert port_fp.backend() == "python" and port_fp.BACKEND == jax_fp.BACKEND
-    assert port_fp.available_backends() == {"python": port_fp._pyimpl}
-    env = dict(os.environ, PYTHONPATH=ROOT, RAY_TPU_FASTPATH="require")
-    out = subprocess.run([sys.executable, "-c", "import ray_tpu_torch._private.fastpath"],
-                         env=env, capture_output=True, text=True, cwd="/")
-    assert out.returncode != 0
-    assert "ROADMAP.md Queue A item 10b-ii" in out.stderr
+# ---- the GCS's port -----------------------------------------------------------
+def test_gcs_binds_the_port_it_reports(tmp_path):
+    """The GCS binds a port of the system's choosing and reports it: no
+    port is picked in the driver and bound later, where any process of
+    the host could take it in between (ROADMAP.md Queue C)."""
+    import socket
+
+    from ray_tpu_torch._private.node import kill_process_tree, spawn_gcs
+    from ray_tpu_torch._private.rpc import RpcClient
+
+    proc, port = spawn_gcs(0, str(tmp_path))
+    try:
+        assert proc.args[proc.args.index("--port") + 1] == "0"
+        client = RpcClient("127.0.0.1", port)
+        try:
+            assert client.call("Ping", timeout=10) == "pong"
+        finally:
+            client.close()
+        with socket.socket() as s, pytest.raises(OSError):
+            s.bind(("127.0.0.1", port))  # the GCS holds it
+        assert not os.path.exists(tmp_path / "gcs_port")
+    finally:
+        kill_process_tree(proc)
+
+
+def test_init_returns_with_the_head_node_registered():
+    """``init()`` returns once the GCS has the head node: its resources
+    are the cluster's at once, though the GCS answers the raylet's
+    RegisterNode 1.5 s late (ROADMAP.md Queue C)."""
+    code = ("import ray_tpu_torch as rt; rt.init(num_cpus=3); "
+            "print(rt.cluster_resources().get('CPU')); rt.shutdown()")
+    # the daemons read their flags from RAY_TPU_<FLAG>
+    env = dict(os.environ, PYTHONPATH=ROOT, RAY_TPU_TESTING_RPC_FAILURE="RegisterNode=1:1500")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd="/", capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "3.0"
 
 
 # ---- the RPC body codec ------------------------------------------------------

@@ -127,7 +127,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             "ray_tpu_torch.rllib.podracer.fleet, ray_tpu_torch.cluster_utils, "
             "ray_tpu_torch.data._internal.streaming_executor, ray_tpu_torch._private.chaos, "
             "ray_tpu_torch.autoscaler, ray_tpu_torch.autoscaler.autoscaler, "
-            "ray_tpu_torch.autoscaler.node_provider; "
+            "ray_tpu_torch.autoscaler.node_provider, ray_tpu_torch.serve.grpc_proxy; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu', "
             "'psutil', 'cloudpickle')))")
@@ -243,7 +243,8 @@ def test_serve_imports_no_jax_and_no_ray_tpu():
     code = ("import sys, ray_tpu_torch.serve, ray_tpu_torch.serve.slo, "
             "ray_tpu_torch.serve.batching, ray_tpu_torch.serve.multiplex, "
             "ray_tpu_torch.serve.deployment, ray_tpu_torch.serve.controller, "
-            "ray_tpu_torch.serve.local_mode, ray_tpu_torch.serve.http_proxy; "
+            "ray_tpu_torch.serve.local_mode, ray_tpu_torch.serve.http_proxy, "
+            "ray_tpu_torch.serve.grpc_proxy; "
             "torch_free = 'torch' not in sys.modules; "
             "import ray_tpu_torch.llm.serving; "
             "print(torch_free, sorted(m for m in sys.modules "
@@ -261,13 +262,3 @@ def test_serve_exports_the_jax_packages_names():
 
     assert ray_tpu_torch.serve.__all__ == ray_tpu.serve.__all__
     assert all(hasattr(ray_tpu_torch.serve, name) for name in ray_tpu_torch.serve.__all__)
-
-
-@pytest.mark.parametrize("name", ["start_grpc_proxy", "grpc_proxy_stats", "stop_grpc_proxy"])
-def test_grpc_ingress_raises_naming_its_roadmap_row(name):
-    from ray_tpu_torch import serve
-
-    assert serve.GRPC_INGRESS_ROW == "ROADMAP.md Queue A, 'Serve's gRPC ingress'"
-    assert "Serve's gRPC ingress" in (ROOT / "ROADMAP.md").read_text()
-    with pytest.raises(NotImplementedError, match=serve.GRPC_INGRESS_ROW):
-        getattr(serve, name)(port=0) if name == "start_grpc_proxy" else getattr(serve, name)()

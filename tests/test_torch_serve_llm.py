@@ -9,14 +9,17 @@ and saves them with the port's ``train.save_state``; the port's
 replica of its cluster. Both deploy a continuous-batching and a
 @serve.batch deployment at once and take the same prompts: one call, four
 concurrent calls and ``generate_stream`` (whose deltas join to the unary
-text). The tokenizer writes the ids out, so equal texts are equal greedy
-tokens, exactly, in fp32 (tests/torch_serve_cases.py runs JAX's side in a
-child process with its collector paused). The port's replicas on a fake
-card are tests/test_torch_serve_llm_card.py's.
+text); the continuous one answers the same prompts through the gRPC
+ingress too, as concurrent unary calls and one server stream. The
+tokenizer writes the ids out, so equal texts are equal greedy tokens,
+exactly, in fp32 (tests/torch_serve_cases.py runs JAX's side in a child
+process with its collector paused). The port's replicas on a fake card
+are tests/test_torch_serve_llm_card.py's.
 """
 
 import dataclasses
 import functools
+import json
 import os
 import threading
 
@@ -109,6 +112,24 @@ def serve_llm(P, config):
     return deploy(config, device="cpu")
 
 
+def over_grpc(P, name):
+    """The prompts through the gRPC ingress (payload=json) as concurrent
+    unary calls, and the first as a server stream of generate_stream."""
+    import grpc
+
+    port = P.serve.start_grpc_proxy(port=0)
+    args = [json.dumps({"args": [p]}).encode() for p in PROMPTS]
+    json_md = (("payload", "json"),)
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        call = ch.unary_unary(f"/{name}/__call__")
+        futures = [call.future(a, metadata=json_md, timeout=120) for a in args]
+        texts = [json.loads(f.result()) for f in futures]
+        deltas = [json.loads(m) for m in ch.unary_stream(f"/{name}/generate_stream")(
+            args[0], metadata=json_md, timeout=120)]
+    return {"texts": texts, "stream": "".join(deltas),
+            "admitted": P.serve.grpc_proxy_stats()["admission_admitted"]}
+
+
 @case
 def serve_llm_continuous_and_batched(P):
     """Both deployments at once, each driven by its own thread (each side's
@@ -127,6 +148,8 @@ def serve_llm_continuous_and_batched(P):
             "one": one, "four": four, "stream_joins_to_one": "".join(deltas) == one,
             "deltas": len(deltas), "short": "".join(short),
             "stats": {k: stats[k] for k in ("admitted", "finished", "tokens_out") if k in stats}}
+        if config.continuous_batching:
+            out[config.name]["grpc"] = over_grpc(P, config.name)
 
     threads = [threading.Thread(target=drive, args=(c,), daemon=True) for c in llm_configs(P)]
     for t in threads:
@@ -161,3 +184,7 @@ def test_same_outcome_on_both_serves(reference, port, name):
     assert by_name["llm-b"]["one"] == by_name["llm-c"]["one"] != ""
     assert by_name["llm-b"]["four"] == by_name["llm-c"]["four"]
     assert all(d["stream_joins_to_one"] for d in by_name.values())
+    # over gRPC: the same completions, unary and streamed
+    grpc = by_name["llm-c"]["grpc"]
+    assert grpc["texts"] == [by_name["llm-c"]["one"]] + by_name["llm-c"]["four"]
+    assert grpc["stream"] == grpc["texts"][0] and grpc["admitted"] == len(PROMPTS) + 1

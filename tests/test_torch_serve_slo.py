@@ -10,8 +10,8 @@ collector on; the outcomes must be equal (HTTP statuses, Retry-After, the
 structured JSON bodies, exception classes and messages). Its load-shedding
 and replica-death cases are tests/test_torch_serve_shedding.py's. The
 soak (``scale_bench.bench_serve_soak``) drains one of two nodes and waits
-for multi-node (ROADMAP.md Queue A item 10b-ii); the gRPC cases wait for
-ROADMAP.md's 'Serve's gRPC ingress'.
+for multi-node (ROADMAP.md Queue A item 10b-ii); the gRPC cases are
+tests/test_torch_serve_grpc.py's.
 """
 
 import asyncio

@@ -103,12 +103,13 @@ def collector_paused():
 
 def run_case(P, fn):
     """One case on P's running cluster; its deployments are deleted and
-    the proxy stopped after it (the controller stays up), so the next case
-    starts from no deployment and no proxy."""
+    the proxies stopped after it (the controller stays up), so the next
+    case starts from no deployment and no proxy."""
     try:
         return outcome(P, lambda: fn(P))
     finally:
         P.serve.stop_http_proxy()
+        P.serve.stop_grpc_proxy()
         for name in P.serve.status()["deployments"]:
             P.serve.delete(name)
 
